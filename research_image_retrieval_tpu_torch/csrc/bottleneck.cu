@@ -1,4 +1,5 @@
-// Inference stride-1 identity bottleneck with folded batch norm.
+// Inference stride-1 identity bottleneck with folded batch norm, on
+// Hopper's tensor cores at fp32 accuracy (3xTF32).
 //
 // Replaces: research_image_retrieval_tpu/ops/resblock_pallas.py
 //           pallas_fused_bottleneck (the Pallas TPU kernel).
@@ -7,226 +8,468 @@
 //   t1  = relu(x @ w1 * s1 + b1), zeroed outside each image's extents
 //   t2  = relu(conv3x3_same(t1, w2) * s2 + b2)
 //   out = relu(t2 @ w3 * s3 + b3 + x)
-// w1 [C, Cw], w2 [3, 3, Cw, Cw] (HWIO), w3 [Cw, C]; (s, b) rows of the
-// [2, C'] folded-BN arrays.  With extents [B, 2] the conv1 output is
-// zeroed outside [0, ext_h) x [0, ext_w), which is what the JAX
-// BottleneckBlock does on masked buckets (models/backbone.py:184-188);
-// the TPU kernel zeroed only rows outside [0, H), so it could not serve
-// the bucketed main path.  Without extents it equals the TPU kernel.
+// (s, b) are rows of the [2, C'] folded-BN arrays.  With extents [B, 2]
+// the conv1 output is zeroed outside [0, ext_h) x [0, ext_w), which is
+// what the JAX BottleneckBlock does on masked buckets
+// (models/backbone.py:184-188); the TPU kernel zeroed only rows outside
+// [0, H), so it could not serve the bucketed main path.  Without extents
+// it equals the TPU kernel.
 //
-// What bounds it on an H100: operations.  The JAX path keeps fp32
-// numerics (the golden descriptors hold to 1e-4 over 16 blocks), so this
-// kernel uses fp32 FMA, not TF32 tensor cores.  One ResNet-50 identity
-// block at 1024 px does 2 * HW * (2 * C * Cw + 9 * Cw^2) ~ 9.1 GFLOP per
-// image on ~4 HW * C bytes: ~35 FLOP per byte in layer1 and more deeper,
-// above the fp32 ridge (67 TFLOP/s / 3.35 TB/s = 20 FLOP per byte).
+// What bounds it on an H100: operations.  One ResNet-50 identity block
+// does 2 * M * (2 * C * Cw + 9 * Cw^2) FLOP (M = B * H * W pixels) on
+// 8 * M * C bytes (x in, out back): ~0.27 * C FLOP per byte, 68 in layer1
+// and more deeper.  The port keeps fp32 numerics (the golden descriptors
+// hold to 1e-4 over 16 blocks; one TF32 product per fp32 product errs by
+// ~1e-3 at these K), so every product is taken as three TF32 products:
+// each operand v splits into big = rna_tf32(v) and small = rna_tf32(v -
+// big), and small*big + big*small + big*big accumulate in fp32
+// (small*small, below fp32's last bit, is dropped).  The ceiling is 495 /
+// 3 = 165 TFLOP/s of fp32-accurate products against 3.35 TB/s: ~49 FLOP
+// per byte, so the deeper layers are operations bound and layer1 sits
+// near the ridge;
+// with the chain's own traffic (the t1 / t2 round trips and the residual
+// read again, ~16 * M * C bytes) layer1 falls below it, to ~34.
 //
-// Design: a chain of three launches of one tiled fp32 GEMM through two
-// device scratch buffers (t1, t2; each a quarter of x), not one fused
-// launch.  Conv1 over a (TH+2) x (TW+2) halo at Cw = 512 plus conv2's
-// weight tiles does not leave a 227 KB block room for a tile large enough
-// to reuse each weight across many pixels, and the scratch round trip adds
-// about one read of x to a block that is bound by FMAs, not bytes.  Each
-// launch is an implicit GEMM: rows are pixels (M = B * H * W), columns
-// output channels.  Conv2's A operand is gathered on the fly (im2col is
-// never materialized): K = 9 * Cw runs over (tap, channel), a 16-wide K
-// tile never straddles a tap, and out-of-image taps read zeros (SAME
-// padding).  Tiles: 128 pixels x 128 (or 64) channels x 16 depth, two
-// shared-memory stages with register prefetch of the next tile, 8 x 8
-// outputs per thread.  The epilogue applies the folded BN, the residual,
-// the ReLU and the extents mask before the single store.
+// Design: a chain of three launches of one implicit GEMM through two
+// device scratch buffers (t1, t2; each a quarter of x).  Rows are pixels,
+// columns output channels, and the weights are the B operand, K-major
+// ([N, K]), split on the host into a [2, N, K] (big, small) pair once per
+// parameter version.  One block computes a (64 * NWG) x BN output tile:
+//   - NWG consumer warpgroups issue wgmma.mma_async m64nBNk8 .tf32 with
+//     A from registers (where the activations are split: 2 cvt and 1
+//     subtraction per element) and B from shared memory (128-byte
+//     swizzled, the layout wgmma reads without bank conflicts);
+//   - one producer warpgroup fills a ring of 4 shared-memory stages with
+//     16-byte cp.async, each stage 32 deep in K (one 128-byte row per
+//     pixel or channel), and signals a "full" mbarrier per stage through
+//     cp.async.mbarrier.arrive; consumers release a stage on its "empty"
+//     mbarrier once the wgmma group that read it has retired.
+//   - The tensor cores truncate each sum into their fp32 accumulator, a
+//     drift that grows linearly with K and at K = 2048 comes within
+//     reach of the 1e-4 error bar.  So each stage's 12 wgmmas sum its
+//     32-deep slice from zero, and the CUDA cores add that partial into
+//     the real accumulator with fp32 rounding.  While one stage's
+//     products run, the next stage's A fragments are loaded and split;
+//     setmaxnreg moves registers from the producer to the consumers for
+//     the two sets of accumulators and fragments.
+// Conv2 gathers its A operand on the fly (im2col is never written): K =
+// 9 * Cw runs over (tap, channel), a 32-deep stage never straddles a tap,
+// and taps outside the image, like rows beyond M, are zero-filled by the
+// copy itself (src-size 0).  The tile is chosen per launch (64 or 128
+// rows; 64 columns where N = 64) to fill the SMs (132 on an H100) at
+// every M the main path launches.  The epilogue applies the folded BN,
+// the residual, the ReLU and the extents mask before one store.  No
+// atomics: the result does not change from run to run.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kBM = 128;  // pixels per block tile
-constexpr int kBK = 16;   // depth per K step
+constexpr int kBK = 32;       // K depth of one stage: 128 bytes of fp32
+constexpr int kStages = 4;    // shared-memory ring
 
-template <int BN, bool TAP3>
-__global__ void __launch_bounds__((kBM / 8) * (BN / 8))
-conv_gemm_kernel(const float* __restrict__ A, const float* __restrict__ Wm,
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT_LOOP:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT_LOOP;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Arrive on `bar` once this thread's earlier cp.async copies have landed.
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(bar) : "memory");
+}
+
+// 16-byte copy; zero-fills the destination when `valid` is false.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// Round to TF32 (10 mantissa bits, nearest, ties away), low bits zeroed.
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r & 0xffffe000u;
+}
+
+// wgmma matrix descriptor of a K-major tile with 128-byte swizzle: rows of
+// 128 bytes, 8-row atoms of 1024 bytes (stride byte offset), atoms
+// 1024-byte aligned so the base offset is 0.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// Tell the compiler the accumulators change here (orders them around the
+// asynchronous wgmma that the compiler cannot see into).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D[64 x 64] += A[64 x 8] (registers) * B[8 x 64] (shared, K-major), tf32.
+__device__ __forceinline__ void wgmma_n64(float* d, const uint32_t* a, uint64_t desc_b,
+                                          int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64 x 128] += A[64 x 8] (registers) * B[8 x 128] (shared, K-major), tf32.
+__device__ __forceinline__ void wgmma_n128(float* d, const uint32_t* a, uint64_t desc_b,
+                                          int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(float* d, const uint32_t* a, uint64_t desc_b,
+                                           int scale_d) {
+  if constexpr (BN == 128) {
+    wgmma_n128(d, a, desc_b, scale_d);
+  } else {
+    wgmma_n64(d, a, desc_b, scale_d);
+  }
+}
+
+template <int NWG, int BN>
+constexpr int smem_bytes() {
+  return kStages * (64 * NWG * 128 + 2 * BN * 128) + 2 * kStages * 8 + 1024;
+}
+
+// out[m, n] = epilogue(sum_k A[m, k] * Wt[n, k]).  TAP3: A is the 3x3
+// SAME im2col of an [M, Cin] NHWC map (K = 9 * Cin); else A is [M, K].
+// Wt: [2, N, K] (tf32 big, tf32 small).  resid [M, N] or null; extents
+// [B, 2] or null.  Block: NWG consumer warpgroups + 1 producer warpgroup.
+template <int NWG, int BN, bool TAP3>
+__global__ void __launch_bounds__(128 * (NWG + 1), 1)
+conv_gemm_tf32x3(const float* __restrict__ A, const float* __restrict__ Wt,
                  const float* __restrict__ sb, const float* __restrict__ resid,
-                 const int* __restrict__ extents, float* __restrict__ out,
-                 int M, int K, int N, int H, int W, int Cin) {
-  constexpr int NT = (kBM / 8) * (BN / 8);
-  constexpr int TX = BN / 8;
-  constexpr int LA = kBM * kBK / 4 / NT;  // float4 loads of A per thread
-  constexpr int LB = kBK * BN / 4 / NT;   // float4 loads of B per thread
-  static_assert(LA * NT * 4 == kBM * kBK, "A tile split");
-  static_assert(LB * NT * 4 == kBK * BN, "B tile split");
-
-  __shared__ __align__(16) float As[2][kBK][kBM];
-  __shared__ __align__(16) float Bs[2][kBK][BN];
+                 const int* __restrict__ extents, float* __restrict__ out, int M, int K,
+                 int N, int H, int W, int Cin) {
+  constexpr int BM = 64 * NWG;
+  constexpr int A_BYTES = BM * 128;
+  constexpr int B_BYTES = BN * 128;  // one half (big or small)
+  constexpr int STAGE_BYTES = A_BYTES + 2 * B_BYTES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sbase = (raw + 1023u) & ~1023u;  // swizzle atoms need 1024-byte alignment
+  const uint8_t* smem = smem_raw + (sbase - raw);
+  const uint32_t full0 = sbase + kStages * STAGE_BYTES;  // kStages "full" mbarriers
+  const uint32_t empty0 = full0 + 8 * kStages;           // kStages "empty" mbarriers
 
   const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const int m0 = blockIdx.x * kBM;
+  const int wg = tid >> 7;
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 128);
+      mbar_init(empty0 + 8 * s, 128 * NWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int m0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
+  const int KT = K / kBK;
   const int HW = H * W;
 
-  // rows this thread loads for A: pixel index and (h, w) for the taps
-  int a_row[LA], a_kq[LA], a_m[LA], a_h[LA], a_w[LA];
+  if (wg == NWG) {
+    // ---- producer warpgroup: 16-byte chunk `chunk` of rows row0 + 16 i ----
+    if constexpr (NWG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    const int pt = tid - 128 * NWG;
+    const int chunk = pt & 7;
+    const int row0 = pt >> 3;
+    constexpr int AR = BM / 16;
+    constexpr int BR = BN / 16;
+    // 32-bit offsets from one row pointer per operand keep the producer
+    // within the registers it gives up to the consumers
+    const float* a_row = A + static_cast<long long>(m0 + row0) * Cin + chunk * 4;
+    const float* w_row = Wt + static_cast<long long>(n0 + row0) * K + chunk * 4;
+    const int half = N * K;
+    int ahw[AR];  // (h << 16) | w of each row, for the 3x3 taps
 #pragma unroll
-  for (int l = 0; l < LA; ++l) {
-    const int idx = tid + l * NT;
-    a_row[l] = idx % kBM;
-    a_kq[l] = idx / kBM;
-    const int m = m0 + a_row[l];
-    a_m[l] = m;
-    const int rem = m % HW;
-    a_h[l] = rem / W;
-    a_w[l] = rem - a_h[l] * W;
-  }
-
-  float4 ra[LA];
-  float4 rb[LB];
-
-  auto load_global = [&](int kt) {
-    const int k0 = kt * kBK;
-    int dy = 1, dx = 1, ci = k0;
-    if (TAP3) {
-      const int tap = k0 / Cin;
-      ci = k0 - tap * Cin;
-      dy = tap / 3;
-      dx = tap - dy * 3;
+    for (int i = 0; i < AR; ++i) {
+      const int rem = (m0 + row0 + 16 * i) % HW;
+      ahw[i] = ((rem / W) << 16) | (rem % W);
     }
+    for (int kt = 0; kt < KT; ++kt) {
+      const int s = kt % kStages;
+      mbar_wait(empty0 + 8 * s, ((kt / kStages) & 1) ^ 1);
+      const int k0 = kt * kBK;
+      const uint32_t sa = sbase + s * STAGE_BYTES;
+      int dy = 1, dx = 1, ci = k0;
+      if (TAP3) {
+        const int tap = k0 / Cin;
+        ci = k0 - tap * Cin;
+        dy = tap / 3;
+        dx = tap - 3 * dy;
+      }
+      const int tap_off = ((dy - 1) * W + (dx - 1)) * Cin + ci;
 #pragma unroll
-    for (int l = 0; l < LA; ++l) {
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      const int m = a_m[l];
-      if (m < M) {
+      for (int i = 0; i < AR; ++i) {
+        const int r = row0 + 16 * i;
+        bool ok = m0 + r < M;
         if (TAP3) {
-          const int hh = a_h[l] + dy - 1;
-          const int ww = a_w[l] + dx - 1;
-          if (hh >= 0 && hh < H && ww >= 0 && ww < W) {
-            const long long pix = (long long)m + (long long)(dy - 1) * W + (dx - 1);
-            v = *reinterpret_cast<const float4*>(A + pix * Cin + ci + a_kq[l] * 4);
-          }
-        } else {
-          v = *reinterpret_cast<const float4*>(A + (long long)m * Cin + ci + a_kq[l] * 4);
+          const int hh = (ahw[i] >> 16) + dy - 1;
+          const int ww = (ahw[i] & 0xffff) + dx - 1;
+          ok = ok && hh >= 0 && hh < H && ww >= 0 && ww < W;
+        }
+        const float* src = ok ? a_row + (16 * i * Cin + tap_off) : A;
+        cp_async16(sa + r * 128 + ((chunk ^ (r & 7)) << 4), src, ok);
+      }
+      const uint32_t sb_big = sa + A_BYTES;
+#pragma unroll
+      for (int i = 0; i < BR; ++i) {
+        const int r = row0 + 16 * i;
+        const uint32_t off = r * 128 + ((chunk ^ (r & 7)) << 4);
+        const float* src = w_row + (16 * i * K + k0);
+        cp_async16(sb_big + off, src, true);
+        cp_async16(sb_big + B_BYTES + off, src + half, true);
+      }
+      cp_async_mbar_arrive(full0 + 8 * s);
+    }
+  } else {
+    // ---- consumer warpgroup wg: output rows wg * 64 .. + 63 of the tile ----
+    if constexpr (NWG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    const int lane = tid & 31;
+    const int warp = (tid >> 5) & 3;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int ra = wg * 64 + warp * 16 + g;  // this thread's A rows: ra, ra + 8
+    // `part`: one stage's products, from zero; `acc`: their fp32 sum
+    // (the tensor cores truncate; see the note at the top)
+    float acc[BN / 2], part[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = part[i] = 0.f;
+    fence_regs(part);
+
+    // Wait for stage kt and split its A fragments: (row, k) = (g, t),
+    // (g + 8, t), (g, t + 4), (g + 8, t + 4) of each 8-deep step kk.
+    auto load = [&](int kt, uint32_t (&big)[4][4], uint32_t (&small)[4][4]) {
+      const int s = kt % kStages;
+      mbar_wait(full0 + 8 * s, (kt / kStages) & 1);
+      const float* a0 = reinterpret_cast<const float*>(smem + s * STAGE_BYTES + ra * 128);
+      const float* a1 = a0 + 8 * 32;  // row ra + 8 (same swizzle phase: (ra + 8) & 7 == g)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int c0 = (((2 * kk) ^ g) << 2) + t;
+        const int c1 = (((2 * kk + 1) ^ g) << 2) + t;
+        const float v[4] = {a0[c0], a1[c0], a0[c1], a1[c1]};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          big[kk][j] = tf32_rna(v[j]);
+          small[kk][j] = tf32_rna(v[j] - __uint_as_float(big[kk][j]));
         }
       }
-      ra[l] = v;
-    }
+    };
+    // Issue stage kt's 12 products into `part`, wait for them, release
+    // the stage and add `part` into `acc`.
+    auto mma = [&](int kt, const uint32_t (&big)[4][4], const uint32_t (&small)[4][4]) {
+      const int s = kt % kStages;
+      // the stage was written by cp.async (generic proxy); wgmma reads B
+      // through the async proxy
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      const uint32_t sb_big = sbase + s * STAGE_BYTES + A_BYTES;
+      wgmma_fence();
 #pragma unroll
-    for (int l = 0; l < LB; ++l) {
-      const int idx = tid + l * NT;
-      const int kr = idx / (BN / 4);
-      const int nq = idx % (BN / 4);
-      rb[l] = *reinterpret_cast<const float4*>(Wm + (long long)(k0 + kr) * N + n0 + nq * 4);
-    }
-  };
-
-  auto store_shared = [&](int buf) {
-#pragma unroll
-    for (int l = 0; l < LA; ++l) {
-      const int k = a_kq[l] * 4;
-      As[buf][k + 0][a_row[l]] = ra[l].x;
-      As[buf][k + 1][a_row[l]] = ra[l].y;
-      As[buf][k + 2][a_row[l]] = ra[l].z;
-      As[buf][k + 3][a_row[l]] = ra[l].w;
-    }
-#pragma unroll
-    for (int l = 0; l < LB; ++l) {
-      const int idx = tid + l * NT;
-      const int kr = idx / (BN / 4);
-      const int nq = idx % (BN / 4);
-      *reinterpret_cast<float4*>(&Bs[buf][kr][nq * 4]) = rb[l];
-    }
-  };
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  const int KT = K / kBK;
-  load_global(0);
-  store_shared(0);
-  __syncthreads();
-  for (int kt = 0; kt < KT; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < KT) load_global(kt + 1);
-#pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][k][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[cur][k][kBM / 2 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][k][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[cur][k][BN / 2 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    if (kt + 1 < KT) store_shared(cur ^ 1);
-    __syncthreads();
-  }
-
-  // epilogue: folded BN, residual, ReLU, extents mask; float4 stores
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = (i < 4) ? ty * 4 + i : kBM / 2 + ty * 4 + (i - 4);
-    const int m = m0 + r;
-    if (m >= M) continue;
-    bool zero = false;
-    if (extents != nullptr) {
-      const int bimg = m / HW;
-      const int rem = m - bimg * HW;
-      const int h = rem / W;
-      const int w = rem - h * W;
-      zero = h >= extents[2 * bimg] || w >= extents[2 * bimg + 1];
-    }
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int n = n0 + half * (BN / 2) + tx * 4;
-      const float4 s = *reinterpret_cast<const float4*>(sb + n);
-      const float4 bb = *reinterpret_cast<const float4*>(sb + N + n);
-      float4 v;
-      v.x = acc[i][half * 4 + 0] * s.x + bb.x;
-      v.y = acc[i][half * 4 + 1] * s.y + bb.y;
-      v.z = acc[i][half * 4 + 2] * s.z + bb.z;
-      v.w = acc[i][half * 4 + 3] * s.w + bb.w;
-      if (resid != nullptr) {
-        const float4 rv = *reinterpret_cast<const float4*>(resid + (long long)m * N + n);
-        v.x += rv.x;
-        v.y += rv.y;
-        v.z += rv.z;
-        v.w += rv.w;
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t db = desc_sw128(sb_big + 32 * kk);
+        const uint64_t ds = desc_sw128(sb_big + B_BYTES + 32 * kk);
+        wgmma_tile<BN>(part, small[kk], db, kk > 0);
+        wgmma_tile<BN>(part, big[kk], ds, 1);
+        wgmma_tile<BN>(part, big[kk], db, 1);
       }
-      v.x = zero ? 0.f : fmaxf(v.x, 0.f);
-      v.y = zero ? 0.f : fmaxf(v.y, 0.f);
-      v.z = zero ? 0.f : fmaxf(v.z, 0.f);
-      v.w = zero ? 0.f : fmaxf(v.w, 0.f);
-      *reinterpret_cast<float4*>(out + (long long)m * N + n) = v;
+      wgmma_commit();
+    };
+    auto retire = [&](int kt) {
+      wgmma_wait<0>();
+      fence_regs(part);
+      mbar_arrive(empty0 + 8 * (kt % kStages));
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
+    };
+    // Two register sets of fragments: the next stage's are split while
+    // the current stage's products run.
+    uint32_t big0[4][4], small0[4][4], big1[4][4], small1[4][4];
+    load(0, big0, small0);
+    for (int kt = 0; kt < KT; kt += 2) {
+      mma(kt, big0, small0);
+      if (kt + 1 < KT) load(kt + 1, big1, small1);
+      retire(kt);
+      if (kt + 1 >= KT) break;
+      mma(kt + 1, big1, small1);
+      if (kt + 2 < KT) load(kt + 2, big0, small0);
+      retire(kt + 1);
+    }
+
+    // ---- epilogue: folded BN, residual, ReLU, extents mask; float2 stores ----
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int m = m0 + ra + 8 * hr;
+      if (m >= M) continue;
+      bool zero = false;
+      if (extents != nullptr) {
+        const int b = m / HW;
+        const int rem = m - b * HW;
+        const int h = rem / W;
+        zero = h >= extents[2 * b] || rem - h * W >= extents[2 * b + 1];
+      }
+      float* orow = out + static_cast<long long>(m) * N;
+      const float* rrow = resid != nullptr ? resid + static_cast<long long>(m) * N : nullptr;
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i) {
+        const int n = n0 + 8 * i + 2 * t;
+        const float2 sc = *reinterpret_cast<const float2*>(sb + n);
+        const float2 bi = *reinterpret_cast<const float2*>(sb + N + n);
+        float2 v;
+        v.x = acc[4 * i + 2 * hr] * sc.x + bi.x;
+        v.y = acc[4 * i + 2 * hr + 1] * sc.y + bi.y;
+        if (rrow != nullptr) {
+          const float2 rv = *reinterpret_cast<const float2*>(rrow + n);
+          v.x += rv.x;
+          v.y += rv.y;
+        }
+        v.x = zero ? 0.f : fmaxf(v.x, 0.f);
+        v.y = zero ? 0.f : fmaxf(v.y, 0.f);
+        *reinterpret_cast<float2*>(orow + n) = v;
+      }
     }
   }
 }
 
+template <int NWG, int BN, bool TAP3>
+void launch_tile(const float* A, const float* Wt, const float* sb, const float* resid,
+                 const int* extents, float* out, int M, int K, int N, int H, int W, int Cin,
+                 cudaStream_t s) {
+  constexpr int BM = 64 * NWG;
+  constexpr int SMEM = smem_bytes<NWG, BN>();
+  auto kern = conv_gemm_tf32x3<NWG, BN, TAP3>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  (void)attr;  // a refusal shows as the launch's error
+  const dim3 grid((M + BM - 1) / BM, N / BN);
+  kern<<<grid, 128 * (NWG + 1), SMEM, s>>>(A, Wt, sb, resid, extents, out, M, K, N, H, W, Cin);
+}
+
+// Waves of `tiles` blocks on the card (one block per SM: the ring takes
+// most of the SM's shared memory).
+int waves(long long tiles) {
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n > 0 ? n : 132;
+  }();
+  return static_cast<int>((tiles + sms - 1) / sms);
+}
+
+// Tile per launch: 128 rows unless 64-row tiles finish sooner.  A 64-row
+// block has one consumer warpgroup and runs at ~0.6x the rate of a
+// 128-row block, so it wins only where 128-row tiles leave a wave
+// mostly empty (M <= ~4608 at N = 512 on the main path).
 template <bool TAP3>
-void launch_gemm(const float* A, const float* Wm, const float* sb, const float* resid,
-                 const int* extents, float* out, int M, int K, int N, int H, int W,
-                 int Cin, cudaStream_t s) {
-  const unsigned gm = (M + kBM - 1) / kBM;
-  if (N % 128 == 0) {
-    conv_gemm_kernel<128, TAP3><<<dim3(gm, N / 128), (kBM / 8) * (128 / 8), 0, s>>>(
-        A, Wm, sb, resid, extents, out, M, K, N, H, W, Cin);
+void launch_gemm(const float* A, const float* Wt, const float* sb, const float* resid,
+                 const int* extents, float* out, int M, int K, int N, int H, int W, int Cin,
+                 cudaStream_t s) {
+  const int bn = N % 128 == 0 ? 128 : 64;
+  const long long cols = N / bn;
+  const bool small = 0.6 * waves(((M + 63) / 64) * cols) < waves(((M + 127) / 128) * cols);
+  if (bn == 128) {
+    if (small)
+      launch_tile<1, 128, TAP3>(A, Wt, sb, resid, extents, out, M, K, N, H, W, Cin, s);
+    else
+      launch_tile<2, 128, TAP3>(A, Wt, sb, resid, extents, out, M, K, N, H, W, Cin, s);
   } else {
-    conv_gemm_kernel<64, TAP3><<<dim3(gm, N / 64), (kBM / 8) * (64 / 8), 0, s>>>(
-        A, Wm, sb, resid, extents, out, M, K, N, H, W, Cin);
+    if (small)
+      launch_tile<1, 64, TAP3>(A, Wt, sb, resid, extents, out, M, K, N, H, W, Cin, s);
+    else
+      launch_tile<2, 64, TAP3>(A, Wt, sb, resid, extents, out, M, K, N, H, W, Cin, s);
   }
 }
 
 }  // namespace
 
-// x: [B, H, W, C] fp32 contiguous; w1 [C, Cw], w2 [9 * Cw, Cw] (HWIO
-// flattened), w3 [Cw, C]; sb1/sb2 [2, Cw], sb3 [2, C]; extents [B, 2]
-// int32 or null.  t1, t2: [B, H, W, Cw] fp32 scratch; out: [B, H, W, C].
-// C and Cw must be multiples of 64.  Returns cudaGetLastError().
+// x: [B, H, W, C] fp32 contiguous; w1 [2, Cw, C], w2 [2, Cw, 9 * Cw] (K
+// ordered (dy, dx, ci)), w3 [2, C, Cw]: each the (big, small) TF32 split
+// of the K-major weight; sb1/sb2 [2, Cw], sb3 [2, C]; extents [B, 2] int32
+// or null.  t1, t2: [B, H, W, Cw] fp32 scratch; out: [B, H, W, C].  C and
+// Cw must be multiples of 64.  Returns cudaGetLastError().
 extern "C" int rir_fused_bottleneck(const float* x, const float* w1, const float* sb1,
                                     const float* w2, const float* sb2, const float* w3,
                                     const float* sb3, const int* extents, float* t1,

@@ -8,26 +8,41 @@
 //   y[d]      = sum_c pooled[c] * W[d, c] + bias[d]
 //   out[b, d] = y[d] / max(||y||_2, 1e-12)
 // with m the bucket mask: an extent pair [B, 2] (valid rows x cols), a
-// dense [B, H, W] mask, or all ones.
+// dense [B, H, W] mask, or all ones.  p is read from device memory (a
+// learnable GeM p never goes through the host).
 //
 // What bounds it on an H100: bytes.  At the main path's shape (B = 8,
 // 32 x 32 x 2048 feature map, 2048 x 2048 fp32 weight) it reads 67 MB of
 // feature map and 17 MB of weight for ~0.12 GFLOP of fp32 work: ~1.4
-// FLOP per byte, far below the card's ~20 FLOP/byte fp32 ridge.
+// FLOP per byte, far below the card's ~20 FLOP/byte fp32 ridge.  The
+// least time is ~25 us at 3.35 TB/s.
 //
-// Design (three launches on the caller's stream, no scratch carried
-// between blocks, since Hopper blocks run in no order):
-//   1. gem_pool_kernel: one block per (image, 128-channel tile).  The TPU
-//      grid carried the running sum across HW blocks in VMEM scratch; here
-//      HW is a loop inside the block: 8 warps stride over HW, each lane
-//      reads 4 channels as one float4 (a warp reads 512 contiguous bytes
-//      of one pixel), 4 pixels in flight per warp.  The warps' partial
-//      sums meet in shared memory; the block writes pooled[b, tile].
-//   2. project_kernel: one warp per output column d, eight images per
-//      block row.  Lanes stride over C reading W[d, :] (nn.Linear layout,
-//      coalesced) and pooled[b, :]; a warp shuffle reduces.  W is read
-//      once per 8 images, as fp32 or bf16 with fp32 accumulation.
-//   3. l2norm_kernel: one block per image normalizes y in place.
+// Design (three launches on the caller's stream; Hopper blocks run in no
+// order, so sums cross launches through scratch, in a fixed order, with
+// no atomics):
+//   1. gem_pool_kernel: one block of 8 warps takes (32-channel tile,
+//      image); 8 lanes read one pixel's 32 channels as float4s (128
+//      contiguous bytes), so a warp reads 4 pixels per step, with 8 steps
+//      of loads in flight.  Tiling C finely, not HW, is what fills the
+//      card: at the main path's shape (B = 8, 32 x 32 x 2048) that is
+//      64 x 8 = 512 blocks, all resident at once.  Only valid cells are
+//      read: with extents the block walks the eh x ew region alone (the
+//      bucket padding and crops cost no bytes); with a dense mask it skips
+//      the load where the mask is 0.  The block finishes the mean and the
+//      root, once per value, and writes pooled[B, C].
+//   2. project_kernel: one block per (32 output columns, channel slice,
+//      8 images); the wrapper cuts C into KS slices (up to 4 of >= 512
+//      channels; each a multiple of 8, so every 16-byte weight load stays
+//      aligned).  Its prologue stages its images' pooled slice in shared
+//      memory (8 x 512 fp32 = 16 KB at C = 2048), read once.  Slicing C
+//      gives 256 blocks instead of 64 and cuts what every block re-reads
+//      from L2 to a quarter.  Each warp computes four columns; each lane
+//      holds 16 bytes of each weight row for 4 steps in flight (4 fp32 or
+//      8 bf16; fp32 accumulation), issued before the prologue so that
+//      their HBM latency overlaps it, and a shuffle reduction closes each
+//      dot.  It writes the slice's dot products to ypart[KS, B, D].
+//   3. l2norm_kernel: one block per image sums the KS slices in order,
+//      adds the bias and normalizes.
 // The mask is not lane-tiled 128 wide as on the TPU (a Mosaic layout
 // constraint): extents cost 8 bytes per image.
 
@@ -38,119 +53,246 @@ namespace {
 
 constexpr int kPoolThreads = 256;                 // 8 warps
 constexpr int kPoolWarps = kPoolThreads / 32;
-constexpr int kPoolChannels = 128;                // 32 lanes x float4
-constexpr int kPoolUnroll = 4;                    // pixels in flight per warp
-constexpr int kProjWarps = 8;                     // output columns per block
+constexpr int kPoolLanes = 8;                     // lanes per pixel, a float4 each
+constexpr int kPoolChannels = 4 * kPoolLanes;     // channels per block
+constexpr int kPoolPixels = kPoolThreads / kPoolLanes;  // pixels per block step
+constexpr int kPoolUnroll = 8;                    // pixels in flight per thread
+constexpr int kProjWarps = 8;
+constexpr int kProjCols = 4;                      // output columns per warp
+constexpr int kProjSteps = 4;                     // 16-byte weight loads in flight per column
 constexpr int kProjImages = 8;                    // images per block
-constexpr int kNormThreads = 256;
+constexpr int kNormThreads = 1024;
 
+// clamp(x, eps)^p for v = clamp(x, eps) > 0, as exp2(p * log2(v)): its
+// relative error is ~|p log2 v| * 2^-24 (under 1e-6 over the activations'
+// range) at a fraction of powf's cost, whose extended-precision log set
+// the pool's pace.
+__device__ __forceinline__ float gem_pow(float v, float p) { return exp2f(p * log2f(v)); }
+
+// pooled[b, c] = (sum over image b's valid cells of clamp(x, eps)^p * m
+//                 / max(sum m, 1))^(1/p), one block per (channel tile, b).
 __global__ void __launch_bounds__(kPoolThreads)
 gem_pool_kernel(const float* __restrict__ x, const int* __restrict__ extents,
-                const float* __restrict__ mask, float* __restrict__ pooled,
-                int H, int W, int C, float p, float inv_p, float eps) {
+                const float* __restrict__ mask, const float* __restrict__ p_ptr,
+                float* __restrict__ pooled, int H, int W, int C, float eps) {
   const int b = blockIdx.y;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int c = blockIdx.x * kPoolChannels + lane * 4;
+  const int cg = threadIdx.x % kPoolLanes;  // channel group of 4
+  const int c = blockIdx.x * kPoolChannels + cg * 4;
   const bool cvalid = c < C;
   const int HW = H * W;
   int eh = H, ew = W;
   if (extents != nullptr) {
-    eh = extents[2 * b];
-    ew = extents[2 * b + 1];
+    eh = min(max(extents[2 * b], 0), H);
+    ew = min(max(extents[2 * b + 1], 0), W);
   }
   const float* xb = x + (size_t)b * HW * C;
   const float* mb = mask != nullptr ? mask + (size_t)b * HW : nullptr;
+  const int n = mb != nullptr ? HW : eh * ew;  // cells this image visits
+  const float p = *p_ptr;
 
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
   float cnt = 0.f;
-  for (int i0 = warp; i0 < HW; i0 += kPoolWarps * kPoolUnroll) {
+  const int px = threadIdx.x / kPoolLanes;  // this thread's pixel in each step
+  for (int i0 = px; i0 < n; i0 += kPoolPixels * kPoolUnroll) {
     float4 v[kPoolUnroll];
     float m[kPoolUnroll];
 #pragma unroll
     for (int u = 0; u < kPoolUnroll; ++u) {
-      const int i = i0 + u * kPoolWarps;
+      const int i = i0 + u * kPoolPixels;
       v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
       m[u] = 0.f;
-      if (i < HW) {
+      if (i < n) {
+        int cell = i;  // a dense mask visits every cell
         if (mb != nullptr) {
           m[u] = mb[i];
         } else {
-          const int h = i / W;
-          const int w = i - h * W;
-          m[u] = (h < eh && w < ew) ? 1.f : 0.f;
+          m[u] = 1.f;
+          cell = i + (i / ew) * (W - ew);  // the i-th cell of the eh x ew region
         }
-        if (cvalid) v[u] = *reinterpret_cast<const float4*>(xb + (size_t)i * C + c);
+        if (cvalid && m[u] != 0.f)
+          v[u] = *reinterpret_cast<const float4*>(xb + (size_t)cell * C + c);
       }
     }
 #pragma unroll
     for (int u = 0; u < kPoolUnroll; ++u) {
-      acc.x += powf(fmaxf(v[u].x, eps), p) * m[u];
-      acc.y += powf(fmaxf(v[u].y, eps), p) * m[u];
-      acc.z += powf(fmaxf(v[u].z, eps), p) * m[u];
-      acc.w += powf(fmaxf(v[u].w, eps), p) * m[u];
+      acc.x += gem_pow(fmaxf(v[u].x, eps), p) * m[u];
+      acc.y += gem_pow(fmaxf(v[u].y, eps), p) * m[u];
+      acc.z += gem_pow(fmaxf(v[u].z, eps), p) * m[u];
+      acc.w += gem_pow(fmaxf(v[u].w, eps), p) * m[u];
       cnt += m[u];
     }
+  }
+  // sum over the warp's pixels (lanes kPoolLanes apart share channels)
+#pragma unroll
+  for (int off = kPoolLanes; off < 32; off <<= 1) {
+    acc.x += __shfl_xor_sync(0xffffffffu, acc.x, off);
+    acc.y += __shfl_xor_sync(0xffffffffu, acc.y, off);
+    acc.z += __shfl_xor_sync(0xffffffffu, acc.z, off);
+    acc.w += __shfl_xor_sync(0xffffffffu, acc.w, off);
+    cnt += __shfl_xor_sync(0xffffffffu, cnt, off);
   }
 
   __shared__ __align__(16) float red[kPoolWarps][kPoolChannels];
   __shared__ float red_cnt[kPoolWarps];
-  *reinterpret_cast<float4*>(&red[warp][lane * 4]) = acc;
+  if (lane < kPoolLanes) *reinterpret_cast<float4*>(&red[warp][lane * 4]) = acc;
   if (lane == 0) red_cnt[warp] = cnt;
   __syncthreads();
   if (threadIdx.x < kPoolChannels) {
     const int cc = blockIdx.x * kPoolChannels + threadIdx.x;
-    float s = 0.f, n = 0.f;
+    float sum = 0.f, total = 0.f;
 #pragma unroll
     for (int k = 0; k < kPoolWarps; ++k) {
-      s += red[k][threadIdx.x];
-      n += red_cnt[k];
+      sum += red[k][threadIdx.x];
+      total += red_cnt[k];
     }
-    if (cc < C) pooled[(size_t)b * C + cc] = powf(s / fmaxf(n, 1.f), inv_p);
+    if (cc < C) pooled[(size_t)b * C + cc] = powf(sum / fmaxf(total, 1.f), 1.f / p);
   }
 }
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+// 16 bytes of a weight row as fp32.
+__device__ __forceinline__ void load_w(const float* w, float (&o)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(w);
+  o[0] = v.x;
+  o[1] = v.y;
+  o[2] = v.z;
+  o[3] = v.w;
+}
+__device__ __forceinline__ void load_w(const __nv_bfloat16* w, float (&o)[8]) {
+  const uint4 v = *reinterpret_cast<const uint4*>(w);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    o[2 * i] = f.x;
+    o[2 * i + 1] = f.y;
+  }
+}
 
+// Channels per projection slice when C is cut into ks: a multiple of 8
+// (so every 16-byte weight load stays aligned).
+__host__ __device__ __forceinline__ int slice_len(int C, int ks) {
+  return ((C + ks - 1) / ks + 7) & ~7;
+}
+
+// ypart[k, b, d] = sum over channel slice k of pooled[b, c] * W[d, c].
 template <typename WT>
 __global__ void __launch_bounds__(kProjWarps * 32)
 project_kernel(const float* __restrict__ pooled, const WT* __restrict__ w,
-               const float* __restrict__ bias, float* __restrict__ y,
-               int B, int C, int D) {
-  const int lane = threadIdx.x & 31;
-  const int d = blockIdx.x * kProjWarps + (threadIdx.x >> 5);
-  const int b0 = blockIdx.y * kProjImages;
+               float* __restrict__ ypart, int B, int C, int D, int ks) {
+  constexpr int VEC = 16 / sizeof(WT);  // weight elements per 16-byte load
+  extern __shared__ __align__(16) float rows[];  // [nb][c_len]
+  const int len = slice_len(C, ks);
+  const int k = blockIdx.y;
+  const int c_begin = k * len;
+  const int c_len = min(len, C - c_begin);
+  const int b0 = blockIdx.z * kProjImages;
   const int nb = min(kProjImages, B - b0);
-  if (d >= D) return;
-  float acc[kProjImages];
+
+  // each warp: kProjCols output columns; each lane 16 bytes of each of
+  // their weight rows per step, kProjSteps steps in flight.  The first
+  // steps' weights are loaded before the prologue, which does not need
+  // them, so their HBM latency overlaps it.
+  const int lane = threadIdx.x & 31;
+  const int d0 = (blockIdx.x * kProjWarps + (threadIdx.x >> 5)) * kProjCols;
+  const bool active = d0 < D;
+  const WT* wrow[kProjCols];
 #pragma unroll
-  for (int j = 0; j < kProjImages; ++j) acc[j] = 0.f;
-  const WT* wd = w + (size_t)d * C;
-  const float* pb = pooled + (size_t)b0 * C;
-  for (int c = lane; c < C; c += 32) {
-    const float wv = to_float(wd[c]);
+  for (int q = 0; q < kProjCols; ++q) wrow[q] = w + (size_t)min(d0 + q, D - 1) * C + c_begin;
+  float wv[kProjSteps][kProjCols][VEC];
+  auto load_steps = [&](int c0) {
+#pragma unroll
+    for (int u = 0; u < kProjSteps; ++u) {
+      const int c = c0 + u * 32 * VEC;
+#pragma unroll
+      for (int q = 0; q < kProjCols; ++q) {
+        if (active && c < c_len) {
+          load_w(wrow[q] + c, wv[u][q]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) wv[u][q][e] = 0.f;
+        }
+      }
+    }
+  };
+  load_steps(lane * VEC);
+
+  // prologue: this block's images' pooled slice into shared memory
+  const int L4 = c_len / 4;
+#pragma unroll 4
+  for (int q = threadIdx.x; q < nb * L4; q += kProjWarps * 32) {
+    const int j = q / L4;
+    reinterpret_cast<float4*>(rows)[q] = *reinterpret_cast<const float4*>(
+        pooled + (size_t)(b0 + j) * C + c_begin + 4 * (q - j * L4));
+  }
+  __syncthreads();
+  if (!active) return;
+
+  float acc[kProjCols][kProjImages];
+#pragma unroll
+  for (int q = 0; q < kProjCols; ++q)
+#pragma unroll
+    for (int j = 0; j < kProjImages; ++j) acc[q][j] = 0.f;
+  constexpr int kBatch = kProjSteps * 32 * VEC;
+  for (int c0 = lane * VEC; c0 < c_len; c0 += kBatch) {
+#pragma unroll
+    for (int u = 0; u < kProjSteps; ++u) {
+      const int c = c0 + u * 32 * VEC;
+      if (c >= c_len) break;
+#pragma unroll
+      for (int j = 0; j < kProjImages; ++j) {
+        if (j < nb) {
+          const float* pj = rows + j * c_len + c;
+#pragma unroll
+          for (int e = 0; e < VEC; e += 4) {
+            const float4 pv = *reinterpret_cast<const float4*>(pj + e);
+#pragma unroll
+            for (int q = 0; q < kProjCols; ++q) {
+              acc[q][j] = fmaf(pv.x, wv[u][q][e], acc[q][j]);
+              acc[q][j] = fmaf(pv.y, wv[u][q][e + 1], acc[q][j]);
+              acc[q][j] = fmaf(pv.z, wv[u][q][e + 2], acc[q][j]);
+              acc[q][j] = fmaf(pv.w, wv[u][q][e + 3], acc[q][j]);
+            }
+          }
+        }
+      }
+    }
+    if (c0 + kBatch < c_len) load_steps(c0 + kBatch);
+  }
+#pragma unroll
+  for (int q = 0; q < kProjCols; ++q)
 #pragma unroll
     for (int j = 0; j < kProjImages; ++j)
-      if (j < nb) acc[j] = fmaf(pb[(size_t)j * C + c], wv, acc[j]);
-  }
 #pragma unroll
-  for (int j = 0; j < kProjImages; ++j) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], off);
-  }
+      for (int off = 16; off > 0; off >>= 1)
+        acc[q][j] += __shfl_xor_sync(0xffffffffu, acc[q][j], off);
   if (lane == 0) {
-    const float bd = bias[d];
-    for (int j = 0; j < nb; ++j) y[(size_t)(b0 + j) * D + d] = acc[j] + bd;
+#pragma unroll
+    for (int q = 0; q < kProjCols; ++q) {
+      if (d0 + q < D) {
+        for (int j = 0; j < nb; ++j)
+          ypart[((size_t)k * B + b0 + j) * D + d0 + q] = acc[q][j];
+      }
+    }
   }
 }
 
+// out[b] = y / max(||y||, 1e-12) with y = sum_k ypart[k, b] + bias, the
+// channel slices summed in order.
 __global__ void __launch_bounds__(kNormThreads)
-l2norm_kernel(float* __restrict__ y, int D) {
-  float* yb = y + (size_t)blockIdx.x * D;
+l2norm_kernel(const float* __restrict__ ypart, const float* __restrict__ bias,
+              float* __restrict__ out, int B, int D, int ks) {
+  const int b = blockIdx.x;
+  float* yb = out + (size_t)b * D;
   float ss = 0.f;
-  for (int d = threadIdx.x; d < D; d += kNormThreads) ss = fmaf(yb[d], yb[d], ss);
+  for (int d = threadIdx.x; d < D; d += kNormThreads) {
+    float v = 0.f;
+    for (int k = 0; k < ks; ++k) v += ypart[((size_t)k * B + b) * D + d];
+    v += bias[d];
+    yb[d] = v;
+    ss = fmaf(v, v, ss);
+  }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
   __shared__ float part[kNormThreads / 32];
@@ -166,28 +308,46 @@ l2norm_kernel(float* __restrict__ y, int D) {
   for (int d = threadIdx.x; d < D; d += kNormThreads) yb[d] = yb[d] / denom;
 }
 
+template <typename WT>
+cudaError_t launch_project(const float* pooled, const void* w, float* ypart, int B, int C,
+                           int D, int ks, cudaStream_t s) {
+  const int smem = kProjImages * slice_len(C, ks) * sizeof(float);
+  auto kern = project_kernel<WT>;
+  static int allowed = 0;  // raised only when a call needs more
+  if (smem > allowed) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    allowed = smem;
+  }
+  const int cols = kProjWarps * kProjCols;
+  const dim3 grid((D + cols - 1) / cols, ks, (B + kProjImages - 1) / kProjImages);
+  kern<<<grid, kProjWarps * 32, smem, s>>>(pooled, reinterpret_cast<const WT*>(w), ypart, B,
+                                           C, D, ks);
+  return cudaSuccess;
+}
+
 }  // namespace
 
-// x: [B, H, W, C] fp32 contiguous (C % 4 == 0).  extents: [B, 2] int32 or
-// null; mask: [B, H, W] fp32 or null (at most one of the two).  w: [D, C]
-// fp32 (w_bf16 == 0) or bf16 (w_bf16 == 1).  pooled: [B, C] fp32 scratch.
-// out: [B, D] fp32.  Returns cudaGetLastError() after the launches.
+// x: [B, H, W, C] fp32 contiguous (C % 4 == 0; C % 8 == 0 for a bf16
+// weight).  extents: [B, 2] int32 or null; mask: [B, H, W] fp32 or null
+// (at most one of the two).  p: one fp32 on the device.  w: [D, C] fp32
+// (w_bf16 == 0) or bf16 (w_bf16 == 1).  ks >= 1: the projection's channel
+// slices.  pooled [B, C] and ypart [ks, B, D]: fp32 scratch.  out: [B, D]
+// fp32.  Returns the first CUDA error of the launches.
 extern "C" int rir_gem_whiten_l2(const float* x, const int* extents, const float* mask,
-                                 const void* w, const float* bias, float* pooled,
-                                 float* out, int w_bf16, int B, int H, int W, int C,
-                                 int D, float p, float inv_p, float eps, void* stream) {
+                                 const float* p, const void* w, const float* bias,
+                                 float* pooled, float* ypart, float* out, int w_bf16, int B,
+                                 int H, int W, int C, int D, int ks, float eps, void* stream) {
+  if (ks < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  dim3 g1((C + kPoolChannels - 1) / kPoolChannels, B);
-  gem_pool_kernel<<<g1, kPoolThreads, 0, s>>>(x, extents, mask, pooled, H, W, C, p,
-                                              inv_p, eps);
-  dim3 g2((D + kProjWarps - 1) / kProjWarps, (B + kProjImages - 1) / kProjImages);
-  if (w_bf16) {
-    project_kernel<__nv_bfloat16><<<g2, kProjWarps * 32, 0, s>>>(
-        pooled, reinterpret_cast<const __nv_bfloat16*>(w), bias, out, B, C, D);
-  } else {
-    project_kernel<float><<<g2, kProjWarps * 32, 0, s>>>(
-        pooled, reinterpret_cast<const float*>(w), bias, out, B, C, D);
-  }
-  l2norm_kernel<<<B, kNormThreads, 0, s>>>(out, D);
+  const dim3 g1((C + kPoolChannels - 1) / kPoolChannels, B);
+  gem_pool_kernel<<<g1, kPoolThreads, 0, s>>>(x, extents, mask, p, pooled, H, W, C, eps);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = w_bf16 ? launch_project<__nv_bfloat16>(pooled, w, ypart, B, C, D, ks, s)
+             : launch_project<float>(pooled, w, ypart, B, C, D, ks, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  l2norm_kernel<<<B, kNormThreads, 0, s>>>(ypart, bias, out, B, D, ks);
   return static_cast<int>(cudaGetLastError());
 }

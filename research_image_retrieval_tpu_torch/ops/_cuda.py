@@ -18,7 +18,7 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "SOURCES", "build_all", "library"]
+__all__ = ["BUILD_DIR", "SOURCES", "build_all", "library", "library_path"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -42,7 +42,7 @@ def _nvcc() -> str:
     return path
 
 
-def _target(name: str) -> Path:
+def library_path(name: str) -> Path:
     digest = hashlib.sha256(SOURCES[name].read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
@@ -57,7 +57,8 @@ def build_all() -> float:
     """
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    todo = {n: _target(n) for n in SOURCES if not _target(n).exists()}
+    todo = {n: library_path(n) for n in SOURCES
+            if not library_path(n).exists()}
     if not todo:
         return 0.0
     nvcc = _nvcc()
@@ -85,7 +86,7 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, building it if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        if not _target(name).exists():
+        if not library_path(name).exists():
             build_all()
-        lib = _loaded[name] = ctypes.CDLL(str(_target(name)))
+        lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return lib

@@ -9,6 +9,7 @@ tensor ``gem_whiten_l2`` launches the hand-written kernel of
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -20,16 +21,29 @@ from research_image_retrieval_tpu_torch.utils.device import fp32_precision
 
 __all__ = ["gem_whiten_l2", "gem_whiten_l2_reference"]
 
-_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-             + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float]
+             + [ctypes.c_void_p])
 
 
+@functools.cache
 def _lib():
-    lib = _cuda.library("gem_head")
-    fn = lib.rir_gem_whiten_l2
+    fn = _cuda.library("gem_head").rir_gem_whiten_l2
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
+
+
+def _proj_slices(C: int) -> int:
+    """Channel slices of the projection launch: up to 4 of >= 512
+    channels (at C = D = 2048, 256 blocks instead of 64)."""
+    return max(1, min(4, C // 512))
+
+
+@functools.lru_cache(maxsize=8)
+def _p_on(p: float, device: torch.device) -> torch.Tensor:
+    """A float ``p`` as the one-element device tensor the kernel reads,
+    made once per value and device (never written)."""
+    return torch.full((1,), p, dtype=torch.float32, device=device)
 
 
 @fp32_precision()
@@ -74,7 +88,9 @@ def gem_whiten_l2(fmap: torch.Tensor, weight: torch.Tensor,
         read as ``weight_dtype`` (bf16 by default, as the TPU kernel;
         the main path's ``extract`` passes float32), fp32 accumulation.
       bias: [D].
-      p: GeM power, a float or a one-element tensor.
+      p: GeM power, a float or a one-element tensor (on CUDA the kernel
+        reads it from device memory: a learnable p is never copied to
+        the host).
       valid_hw: optional [B, H, W] bucket mask; or
       extents: optional [B, 2] int valid (rows, cols) at fmap resolution.
 
@@ -93,11 +109,13 @@ def gem_whiten_l2(fmap: torch.Tensor, weight: torch.Tensor,
         raise ValueError(f"fmap must be [B, H, W, C], got {tuple(fmap.shape)}")
     B, H, W, C = fmap.shape
     D = weight.shape[0]
-    if C % 4:
-        raise ValueError(f"C={C} must be a multiple of 4")
     if weight_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"weight_dtype must be float32 or bfloat16, "
                          f"got {weight_dtype}")
+    vec = 4 if weight_dtype == torch.float32 else 8  # 16-byte weight loads
+    if C % vec:
+        raise ValueError(f"C={C} must be a multiple of {vec} for a "
+                         f"{weight_dtype} weight")
     dev = fmap.device
     w = weight.detach().to(weight_dtype).contiguous()
     b = bias.detach().to(torch.float32).contiguous()
@@ -111,15 +129,23 @@ def gem_whiten_l2(fmap: torch.Tensor, weight: torch.Tensor,
     if valid_hw is not None:
         mask = valid_hw.to(torch.float32).contiguous()
         _check("valid_hw", mask, dev, torch.float32, (B, H, W))
-    p = float(p)
-    pooled = torch.empty((B, C), dtype=torch.float32, device=dev)
+    if isinstance(p, torch.Tensor):
+        if p.numel() != 1:
+            raise ValueError(f"p must have one element, got {tuple(p.shape)}")
+        pt = p.detach().to(device=dev, dtype=torch.float32).reshape(1)
+        _check("p", pt, dev, torch.float32, (1,))
+    else:
+        pt = _p_on(float(p), dev)
+    ks = _proj_slices(C)
+    # scratch: pooled [B, C], then ypart [ks, B, D] (16-byte aligned: C % 4 == 0)
+    work = torch.empty(B * C + ks * B * D, dtype=torch.float32, device=dev)
     out = torch.empty((B, D), dtype=torch.float32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
-    rc = _lib()(
-        fmap.data_ptr(), ptr(ext), ptr(mask), w.data_ptr(), b.data_ptr(),
-        pooled.data_ptr(), out.data_ptr(), int(weight_dtype == torch.bfloat16),
-        B, H, W, C, D, p, 1.0 / p, eps,
-        torch.cuda.current_stream(dev).cuda_stream)
+    rc = _lib()(fmap.data_ptr(), ptr(ext), ptr(mask), pt.data_ptr(),
+                w.data_ptr(), b.data_ptr(), work.data_ptr(),
+                work.data_ptr() + 4 * B * C, out.data_ptr(),
+                int(weight_dtype == torch.bfloat16), B, H, W, C, D, ks, eps,
+                torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gem_head kernel launch failed: cudaError {rc}")
     gem_whiten_l2.launches += 1

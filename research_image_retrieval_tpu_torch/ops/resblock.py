@@ -7,11 +7,20 @@ CUDA tensor ``fused_bottleneck`` launches the hand-written kernel chain of
 optional per-image ``extents`` and then zero conv1's output outside each
 image's valid region, as the JAX ``BottleneckBlock`` does on masked
 buckets, so the kernel can serve the bucketed main path.
+
+The kernel takes its products on the tensor cores as three TF32 products
+each (3xTF32: fp32-accurate, never plain TF32).  It reads the (big,
+small) TF32 split of each conv weight in K-major layout
+(``split_weights``), which the wrapper makes from the weights it is given
+and keeps while those tensors live unchanged, so a caller that reuses its
+weights, as the model's blocks do, splits them once.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -20,11 +29,13 @@ from research_image_retrieval_tpu_torch.ops import _cuda
 from research_image_retrieval_tpu_torch.ops.masking import hw_mask
 from research_image_retrieval_tpu_torch.utils.device import fp32_precision
 
-__all__ = ["fold_bn", "fused_bottleneck", "fused_bottleneck_reference"]
+__all__ = ["fold_bn", "fused_bottleneck", "fused_bottleneck_reference",
+           "split_weights"]
 
 _ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
+@functools.cache
 def _lib():
     lib = _cuda.library("bottleneck")
     fn = lib.rir_fused_bottleneck
@@ -39,6 +50,52 @@ def fold_bn(scale, bias, mean, var, eps: float = 1e-5) -> torch.Tensor:
     s = scale / torch.sqrt(var + eps)
     b = bias - mean * s
     return torch.stack([s, b]).to(torch.float32)
+
+
+def _round_tf32(v: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32's 10 mantissa bits, to nearest with ties away
+    from zero (``cvt.rna.tf32.f32``), the 13 low bits zeroed."""
+    bits = v.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(w_nk: torch.Tensor) -> torch.Tensor:
+    big = _round_tf32(w_nk)
+    return torch.stack([big, _round_tf32(w_nk - big)]).contiguous()
+
+
+@torch.no_grad()
+def split_weights(w1, w2, w3):
+    """The kernel's weights: for w1 [C, Cw], w2 [3, 3, Cw, Cw] (HWIO) and
+    w3 [Cw, C], the (big, small) TF32 split of each in K-major layout:
+    [2, Cw, C], [2, Cw, 9 * Cw] (K ordered (dy, dx, ci)) and [2, C, Cw]."""
+    cw = w2.shape[3]
+    return (_split(w1.t()), _split(w2.permute(3, 0, 1, 2).reshape(cw, -1)),
+            _split(w3.t()))
+
+
+_SPLITS: collections.OrderedDict = collections.OrderedDict()
+_SPLITS_KEPT = 32  # weight sets; the model has 12 identity blocks
+
+
+def _split_of(w1, w2, w3):
+    """``split_weights(w1, w2, w3)``, made once per set of weight tensors.
+
+    An entry holds its three tensors, so no other tensor can take their
+    ids while it is kept, and their in-place versions, so an in-place
+    change (``copy_``, an optimizer step) makes the split anew."""
+    key = (id(w1), id(w2), id(w3))
+    versions = (w1._version, w2._version, w3._version)
+    hit = _SPLITS.get(key)
+    if hit is not None and hit[1] == versions:
+        _SPLITS.move_to_end(key)
+        return hit[2]
+    split = split_weights(w1, w2, w3)
+    _SPLITS[key] = ((w1, w2, w3), versions, split)
+    _SPLITS.move_to_end(key)
+    while len(_SPLITS) > _SPLITS_KEPT:
+        _SPLITS.popitem(last=False)
+    return split
 
 
 @fp32_precision()
@@ -71,9 +128,10 @@ def fused_bottleneck(x: torch.Tensor, w1, sb1, w2, sb2, w3, sb3,
                      extents: torch.Tensor | None = None) -> torch.Tensor:
     """Fused stride-1 identity-skip bottleneck, [B, H, W, C] -> same.
 
-    Args as ``fused_bottleneck_reference``.  On CUDA: fp32 only, C and
-    Cw multiples of 64 (every ResNet bottleneck), all operands contiguous
-    on x's device.
+    Args as ``fused_bottleneck_reference``.  On CUDA: fp32 only, C and Cw
+    multiples of 64 (every ResNet bottleneck), all operands contiguous on
+    x's device; the weights' TF32 split is made on the first call with
+    these weight tensors and kept (``_split_of``).
     """
     if x.device.type == "cpu":
         return fused_bottleneck_reference(x, w1, sb1, w2, sb2, w3, sb3,
@@ -94,6 +152,7 @@ def fused_bottleneck(x: torch.Tensor, w1, sb1, w2, sb2, w3, sb3,
     _check("sb2", sb2, dev, (2, Cw))
     _check("w3", w3, dev, (Cw, C))
     _check("sb3", sb3, dev, (2, C))
+    k1, k2, k3 = _split_of(w1, w2, w3)
     ext = None
     if extents is not None:
         ext = extents.to(torch.int32).contiguous()
@@ -102,8 +161,8 @@ def fused_bottleneck(x: torch.Tensor, w1, sb1, w2, sb2, w3, sb3,
     t2 = torch.empty_like(t1)
     out = torch.empty_like(x)
     rc = _lib()(
-        x.data_ptr(), w1.data_ptr(), sb1.data_ptr(), w2.data_ptr(),
-        sb2.data_ptr(), w3.data_ptr(), sb3.data_ptr(),
+        x.data_ptr(), k1.data_ptr(), sb1.data_ptr(), k2.data_ptr(),
+        sb2.data_ptr(), k3.data_ptr(), sb3.data_ptr(),
         None if ext is None else ext.data_ptr(), t1.data_ptr(),
         t2.data_ptr(), out.data_ptr(), B, H, W, C, Cw,
         torch.cuda.current_stream(dev).cuda_stream)

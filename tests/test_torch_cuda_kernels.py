@@ -7,9 +7,10 @@ PyTorch is installed:
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
 
-Tolerances: fp32 FMA on both sides, sums in another order: the head
-holds to rtol 1e-5 / atol 1e-6 (bf16 weight: 5e-3, the Pallas bar), the
-bottleneck to atol 1e-4 on O(1) outputs.
+Tolerances: the head is fp32 FMA on both sides, sums in another order,
+and holds to rtol 1e-5 / atol 1e-6 (bf16 weight: 5e-3, the Pallas bar);
+the bottleneck's 3xTF32 products carry fp32's accuracy and hold to atol
+1e-4 on O(1) outputs.
 """
 
 import math
@@ -53,11 +54,56 @@ def test_gem_head_kernel(cuda, form, wdt):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("with_extents", [False, True])
-@pytest.mark.parametrize("c,cw,h,w", [(256, 64, 19, 13), (512, 128, 8, 8)])
-def test_bottleneck_kernel(cuda, c, cw, h, w, with_extents):
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("side", [32, 16])
+def test_gem_head_kernel_device_p(cuda, B, side):
+    """The main path's head shapes (layer4 of the 1024 and 512 px
+    buckets, 2048 -> 2048) with p as a tensor on the card, as a learnable
+    p is passed: read there, never copied to the host."""
     g = cuda
-    B = 2
+    C = D = 2048
+    fmap = torch.randn(B, side, side, C, device="cuda", generator=g).abs()
+    weight = torch.randn(D, C, device="cuda", generator=g) / math.sqrt(C)
+    bias = 0.01 * torch.randn(D, device="cuda", generator=g)
+    ext = torch.randint(1, side + 1, (B, 2), device="cuda", generator=g,
+                        dtype=torch.int32)
+    p = torch.tensor([2.5], device="cuda")
+    before = gem_head.gem_whiten_l2.launches
+    got = gem_head.gem_whiten_l2(fmap, weight, bias, p=p, extents=ext,
+                                 weight_dtype=torch.float32)
+    want = gem_head.gem_whiten_l2_reference(fmap, weight, bias, p=p,
+                                            extents=ext,
+                                            weight_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert gem_head.gem_whiten_l2.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("form", ["extents", "mask"])
+def test_gem_head_kernel_large_map(cuda, form):
+    """A map larger than any main-path one (48 x 48 cells): each pool
+    block walks all of an image's valid cells, however many."""
+    g = cuda
+    B, side, C, D = 2, 48, 512, 256
+    fmap = torch.randn(B, side, side, C, device="cuda", generator=g).abs()
+    weight = torch.randn(D, C, device="cuda", generator=g) / math.sqrt(C)
+    bias = 0.01 * torch.randn(D, device="cuda", generator=g)
+    kw = ({"extents": torch.tensor([[48, 48], [30, 41]], device="cuda",
+                                   dtype=torch.int32)}
+          if form == "extents" else
+          {"valid_hw": (torch.rand(B, side, side, device="cuda", generator=g)
+                        > 0.5).float()})
+    before = gem_head.gem_whiten_l2.launches
+    got = gem_head.gem_whiten_l2(fmap, weight, bias,
+                                 weight_dtype=torch.float32, **kw)
+    want = gem_head.gem_whiten_l2_reference(fmap, weight, bias,
+                                            weight_dtype=torch.float32, **kw)
+    torch.cuda.synchronize()
+    assert gem_head.gem_whiten_l2.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def _bottleneck_inputs(g, B, h, w, c, cw, with_extents):
     rn = lambda *s, scale=1.0: torch.randn(*s, device="cuda",
                                            generator=g) * scale
 
@@ -71,8 +117,45 @@ def test_bottleneck_kernel(cuda, c, cw, h, w, with_extents):
     ws = (rn(c, cw, scale=c ** -0.5), sb(cw),
           rn(3, 3, cw, cw, scale=(9 * cw) ** -0.5), sb(cw),
           rn(cw, c, scale=cw ** -0.5), sb(c))
-    ext = (torch.tensor([[h, w], [h // 2 + 1, w - 3]], device="cuda",
-                        dtype=torch.int32) if with_extents else None)
+    ext = (torch.tensor([[h, w]] + [[h // 2 + 1, w - 3]] * (B - 1),
+                        device="cuda", dtype=torch.int32)
+           if with_extents else None)
+    return x, ws, ext
+
+
+@pytest.mark.parametrize("with_extents", [False, True])
+@pytest.mark.parametrize("c,cw,h,w", [(256, 64, 19, 13), (512, 128, 8, 8)])
+def test_bottleneck_kernel(cuda, c, cw, h, w, with_extents):
+    x, ws, ext = _bottleneck_inputs(cuda, 2, h, w, c, cw, with_extents)
+    got = resblock.fused_bottleneck(x, *ws, extents=ext)
+    want = resblock.fused_bottleneck_reference(x, *ws, extents=ext)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("B,h,w,c,cw", [(2, 19, 13, 256, 64),
+                                        (2, 19, 13, 2048, 512),
+                                        (8, 16, 16, 2048, 512)])
+def test_bottleneck_kernel_tiles(cuda, B, h, w, c, cw):
+    """Shapes that stress the per-launch tiling, with extents: M = 494
+    (not a multiple of a tile) at the narrowest and the widest block, and
+    M = 2048 at C = 2048 (layer4 of the 512 px bucket, 64-row tiles)."""
+    x, ws, ext = _bottleneck_inputs(cuda, B, h, w, c, cw, True)
+    before = resblock.fused_bottleneck.launches
+    got = resblock.fused_bottleneck(x, *ws, extents=ext)
+    want = resblock.fused_bottleneck_reference(x, *ws, extents=ext)
+    torch.cuda.synchronize()
+    assert resblock.fused_bottleneck.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+def test_bottleneck_kernel_weights_changed_in_place(cuda):
+    """The kernel's kept weight split follows an in-place change of the
+    weights it was made from."""
+    x, ws, ext = _bottleneck_inputs(cuda, 2, 8, 8, 256, 64, True)
+    resblock.fused_bottleneck(x, *ws, extents=ext)
+    with torch.no_grad():
+        ws[2].mul_(-0.5)
     got = resblock.fused_bottleneck(x, *ws, extents=ext)
     want = resblock.fused_bottleneck_reference(x, *ws, extents=ext)
     torch.cuda.synchronize()

@@ -236,6 +236,102 @@ def test_bottleneck_extents_zero_conv1_outside(rng):
     np.testing.assert_allclose(full[:, :7, :6], crop, rtol=1e-5, atol=1e-6)
 
 
+# -- the CUDA kernel's numerics: 3xTF32 products, emulated on the CPU ------
+#
+# The kernel splits each operand v into big = rna_tf32(v) and small =
+# rna_tf32(v - big) and sums small*big + big*small + big*big in fp32.
+# Products of two TF32 values are exact in fp32, so plain fp32 matmuls of
+# the rounded operands give the kernel's numbers up to summation order.
+
+def _tf32(v):
+    """Round fp32 to TF32 (nearest, ties away): add 0x1000, mask ~0x1FFF."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_tf32(a, b_nk, products):
+    """a [M, K] @ b_nk[N, K].T with TF32 operands, in the kernel's order."""
+    a_big, b_big = _tf32(a), _tf32(b_nk)
+    if products == 1:
+        return a_big @ b_big.T
+    acc = _tf32(a - a_big) @ b_big.T
+    acc = acc + a_big @ _tf32(b_nk - b_big).T
+    return acc + a_big @ b_big.T
+
+
+def _emulated_bottleneck(x, w1, sb1, w2, sb2, w3, sb3, extents, products):
+    """The kernel's chain of three implicit GEMMs: K-major weights, conv2
+    as im2col over (dy, dx, ci) with zero padding."""
+    B, H, W, C = x.shape
+    cw = w1.shape[1]
+    a = x.reshape(-1, C)
+    t1 = torch.relu(_mm_tf32(a, w1.t(), products) * sb1[0] + sb1[1])
+    t1 = t1.reshape(B, H, W, cw)
+    if extents is not None:
+        keep = ((torch.arange(H)[None, :, None] < extents[:, 0, None, None])
+                & (torch.arange(W)[None, None, :] < extents[:, 1, None, None]))
+        t1 = t1 * keep[..., None]
+    tp = torch.nn.functional.pad(t1, (0, 0, 1, 1, 1, 1))
+    cols = torch.cat([tp[:, dy:dy + H, dx:dx + W] for dy in range(3)
+                      for dx in range(3)], dim=-1).reshape(-1, 9 * cw)
+    w2_nk = w2.permute(3, 0, 1, 2).reshape(cw, 9 * cw)
+    t2 = torch.relu(_mm_tf32(cols, w2_nk, products) * sb2[0] + sb2[1])
+    y = _mm_tf32(t2, w3.t(), products) * sb3[0] + sb3[1] + a
+    return torch.relu(y).reshape(B, H, W, C)
+
+
+def _r50_block_inputs(rng, c, cw):
+    x = (rng.standard_normal((2, 7, 6, c)) * 0.5).astype(np.float32)
+    _, pt = _fold_both(_block_weights(rng, c, cw))
+    return T(x), pt, torch.tensor([[7, 6], [5, 3]], dtype=torch.int32)
+
+
+@pytest.mark.parametrize("c,cw", [(256, 64), (512, 128), (1024, 256),
+                                  (2048, 512)])
+def test_bottleneck_3xtf32_holds_kernel_bar(rng, c, cw):
+    """At the four R50 identity widths, with extents, 3xTF32 products stay
+    within the kernel's bar (rtol 1e-5, atol 1e-4) of the fp32 plain
+    version, and the port's weight split is this emulation's split."""
+    x, pt, ext = _r50_block_inputs(rng, c, cw)
+    w1, _, w2, _, w3, _ = pt
+    for got, w_nk in zip(resblock.split_weights(w1, w2, w3),
+                         (w1.t(), w2.permute(3, 0, 1, 2).reshape(cw, -1),
+                          w3.t())):
+        big = _tf32(w_nk)
+        torch.testing.assert_close(got, torch.stack([big, _tf32(w_nk - big)]),
+                                   rtol=0, atol=0)
+    want = resblock.fused_bottleneck_reference(x, *pt, extents=ext)
+    got = _emulated_bottleneck(x, *pt, ext, products=3)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+def test_bottleneck_1xtf32_misses_kernel_bar(rng):
+    """Why three products: one TF32 product per fp32 product (K up to
+    9 * 512) misses the same bar by an order of magnitude."""
+    x, pt, ext = _r50_block_inputs(rng, 2048, 512)
+    want = resblock.fused_bottleneck_reference(x, *pt, extents=ext)
+    err = (_emulated_bottleneck(x, *pt, ext, products=1) - want).abs()
+    assert bool((err > 1e-4 + 1e-5 * want.abs()).any())
+    assert err.max().item() > 5e-4
+
+
+def test_bottleneck_split_kept_per_weight_tensors(rng):
+    """The wrapper's kept split is made once per set of weight tensors,
+    made anew after an in-place change, and never shared between sets."""
+    _, pt = _fold_both(_block_weights(rng, 64, 16))
+    w1, _, w2, _, w3, _ = pt
+    first = resblock._split_of(w1, w2, w3)
+    assert resblock._split_of(w1, w2, w3) is first
+    other = resblock._split_of(w1.clone(), w2, w3)
+    assert other is not first
+    with torch.no_grad():
+        w2.mul_(-0.5)
+    again = resblock._split_of(w1, w2, w3)
+    assert again is not first
+    for got, want in zip(again, resblock.split_weights(w1, w2, w3)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
 def test_bottleneck_rejects_other_devices(rng):
     x = rng.standard_normal((1, 4, 4, 64)).astype(np.float32)
     _, pt = _fold_both(_block_weights(rng, 64, 16))
