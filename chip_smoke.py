@@ -19,7 +19,15 @@ Phases (any failure raises and exits non-zero; there is no fallback):
      E/M/H mAP, with each kernel's launch count over this run;
   5. a warm timed extraction of 64 fixture images on the same path
      (steady img/s), then a torch.profiler pass over the same run: device
-     time by kernel group and the device's busy share.
+     time by kernel group and the device's busy share;
+  6. the serving stack at full width through its entry points: the
+     extract CLI indexes the fixture (JPEG files when OpenCV or PIL can
+     encode them), a 1.4M x 2048 gallery is built on the card,
+     ``SearchService`` (int8 and exact engines) is held against direct
+     engine calls and timed under 1 and 8 clients, the HTTP front end
+     answers vector and image queries through an ``ImageExtractor``, and
+     the CLI path's mAP equals phase 4's; both kernels' launches are
+     counted on the CLI step and on the HTTP / image step.
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Needs a CUDA device and the repo.
 """
@@ -557,6 +565,477 @@ def phase_profile(torch, run, label):
               f"{e.key[:100]}")
 
 
+SERVE_N = 1_400_000  # GLDv2-index scale: 2.87 GB int8, 5.7 GB bf16 at 2048
+SERVE_K = 100
+
+
+def _jpeg_encoder():
+    """``encode(rgb uint8) -> JPEG bytes`` through OpenCV or PIL, or None
+    when neither is installed."""
+    try:
+        import cv2
+
+        def enc(img):
+            ok, buf = cv2.imencode(".jpg", cv2.cvtColor(img, cv2.COLOR_RGB2BGR),
+                                   [cv2.IMWRITE_JPEG_QUALITY, 95])
+            if not ok:
+                raise RuntimeError("cv2.imencode failed")
+            return buf.tobytes()
+        return enc
+    except ImportError:
+        pass
+    try:
+        import io
+
+        from PIL import Image
+    except ImportError:
+        return None
+
+    def enc(img):
+        out = io.BytesIO()
+        Image.fromarray(img).save(out, format="JPEG", quality=95)
+        return out.getvalue()
+    return enc
+
+
+def _reset_launches(gh, rb):
+    gh.gem_whiten_l2.launches = 0
+    rb.fused_bottleneck.launches = 0
+
+
+def _read_launches(gh, rb, step: str) -> dict:
+    counts = {"gem_head": gh.gem_whiten_l2.launches,
+              "bottleneck": rb.fused_bottleneck.launches}
+    for name, n in counts.items():
+        if n == 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"serving step '{step}'")
+    return counts
+
+
+def _distinct(scores, tol=1e-6):
+    gap = np.abs(np.diff(scores, axis=1))
+    d = np.ones_like(scores, bool)
+    d[:, 1:] &= gap > tol
+    d[:, :-1] &= gap > tol
+    return d
+
+
+def _same_ids(name, ids, want_ids, scores, tol=1e-6):
+    d = _distinct(scores, tol)
+    bad = int((ids != want_ids)[d].sum())
+    if bad:
+        raise AssertionError(f"{name}: {bad} ids differ on distinct scores")
+    return int(d.sum())
+
+
+def _fixture_map(torch, vecs, labels, q_idx):
+    from research_image_retrieval_tpu_torch.data import make_synthetic_gnd
+    from research_image_retrieval_tpu_torch.evaluation import (
+        compute_map_and_print,
+    )
+    from research_image_retrieval_tpu_torch.index import rank_full
+
+    ranks = rank_full(vecs[q_idx], vecs, device="cuda")
+    return compute_map_and_print("roxford5k", "global", "synthetic", ranks,
+                                 make_synthetic_gnd(labels, q_idx),
+                                 kappas=[1, 5, 10])
+
+
+def _build_gallery(torch, head: np.ndarray, n: int, seed: int = 0):
+    """(fp32, bf16, int8, scales) device galleries of ``n`` x D: ``head``
+    (the fixture's descriptors) then unit rows from a seeded CUDA
+    generator, made in 65536-row blocks on the card."""
+    from research_image_retrieval_tpu_torch.ops import quantize_gallery_int8
+
+    d = head.shape[1]
+    g32 = torch.empty((n, d), dtype=torch.float32, device="cuda")
+    g32[:len(head)] = torch.from_numpy(head).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for b in range(len(head), n, 65536):
+        e = min(b + 65536, n)
+        blk = torch.randn((e - b, d), device="cuda", generator=gen)
+        g32[b:e] = blk / torch.linalg.vector_norm(blk, dim=1, keepdim=True)
+    q8, s8 = quantize_gallery_int8(g32)
+    return g32, g32.to(torch.bfloat16), q8, s8
+
+
+def _int8_pair_scores(torch, q, q8, s8, rows) -> np.ndarray:
+    """The int8 engine's score of each query with the gallery row
+    ``rows[i]``, recomputed outside the engine: the query quantized as the
+    engine does, the exact integer dot product, then ``s32 * (s_q * s_g)``
+    in fp32."""
+    from research_image_retrieval_tpu_torch.ops import quantize_gallery_int8
+
+    qq, sq = quantize_gallery_int8(q)
+    r = torch.from_numpy(np.asarray(rows)).to(q.device)
+    dots = (qq.to(torch.int64) * q8[r].to(torch.int64)).sum(dim=1)
+    return (dots.to(torch.float32) * (sq * s8[r])).cpu().numpy()
+
+
+def _load_clients(svc, queries, clients: int, per_client: int, k: int):
+    """``clients`` threads, each sending ``per_client`` one-query
+    requests back to back; returns per-request ms (host clock), QPS and
+    the service's engine-call / batch counts over the run."""
+    import threading
+
+    before = svc.stats()
+    lat = [[] for _ in range(clients)]
+    errs = []
+
+    def client(c):
+        try:
+            for r in range(per_client):
+                q = queries[(c * per_client + r) % len(queries)]
+                t0 = time.perf_counter()
+                svc.search(q, k=k)
+                lat[c].append((time.perf_counter() - t0) * 1e3)
+        except Exception as e:  # reported after the join
+            errs.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    if errs or any(t.is_alive() for t in threads):
+        raise AssertionError(f"load run failed: {errs or 'a client hung'}")
+    after = svc.stats()
+    ms = np.sort(np.concatenate([np.asarray(v) for v in lat]))
+    return dict(p50=float(np.percentile(ms, 50)),
+                p99=float(np.percentile(ms, 99)),
+                qps=len(ms) / wall,
+                engine_calls=after["engine_calls"] - before["engine_calls"],
+                batches=(after["coalesced_batches"]
+                         - before["coalesced_batches"]))
+
+
+def _post(url, payload):
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return json.loads(r.read())
+
+
+def phase_serving(torch, gh, rb, gpu_model, phase4_map) -> dict:
+    """Phase 6: the serving stack at full width through its entry points:
+    the extract CLI on the 16 x 8 fixture (JPEG files when an encoder is
+    installed, else its in-memory function), a 1.4M x 2048 gallery on the
+    card, ``SearchService`` (int8 and exact engines) against direct
+    engine calls, latency under 1 and 8 clients, the HTTP front end with
+    an ``ImageExtractor``, and the CLI path's mAP against phase 4's.
+    Returns each kernel's launch count per serving step."""
+    import base64
+    import socket
+    import threading
+
+    from research_image_retrieval_tpu_torch.cli import extract as cli_extract
+    from research_image_retrieval_tpu_torch.evaluation.driver import (
+        _load_model,
+    )
+    from research_image_retrieval_tpu_torch.ops import topk_stream
+    from research_image_retrieval_tpu_torch.serve import (
+        ImageExtractor,
+        SearchService,
+        make_http_server,
+    )
+    from research_image_retrieval_tpu_torch.serve.http import (
+        decode_image_bytes,
+    )
+    from research_image_retrieval_tpu_torch.utils.config import EvalConfig
+
+    work = os.path.join(ROOT, "build", "chip_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    ckpt = os.path.join(work, "gem_r50_seed0.pt")
+    torch.save({k: v.cpu() for k, v in gpu_model.state_dict().items()}, ckpt)
+    imgs, labels = serving_fixture(16, 1024)
+    names = [f"{i:03d}.jpg" for i in range(len(imgs))]
+    q_idx = np.arange(0, len(imgs), 8)
+    steps = {}
+
+    # -- 6.1 index the fixture through the extract CLI's code -------------
+    enc = _jpeg_encoder()
+    _reset_launches(gh, rb)
+    t0 = time.perf_counter()
+    if enc is not None:
+        jdir = os.path.join(work, "fixture")
+        os.makedirs(jdir)
+        jpegs = [enc(im) for im in imgs]
+        for name, buf in zip(names, jpegs):
+            with open(os.path.join(jdir, name), "wb") as f:
+                f.write(buf)
+        for tag, extra in (("float", []), ("int8", ["--quantize-int8"])):
+            cli_extract.main(["--images", jdir, "--checkpoint", ckpt,
+                              "--multiscale", "--batch-size", "8",
+                              "--output", os.path.join(work, f"{tag}.npz"),
+                              *extra])
+        route = "JPEG files through cli.extract main()"
+    else:
+        jpegs = None
+        model = _load_model(EvalConfig(checkpoint=ckpt), device="cuda")
+        for tag, quant in (("float", False), ("int8", True)):
+            np.savez(os.path.join(work, f"{tag}.npz"), **cli_extract
+                     .extract_index(model, imgs, names, multiscale=True,
+                                    batch_size=8, quantize_int8=quant))
+        route = ("in-memory arrays through cli.extract.extract_index (no "
+                 "JPEG encoder: the file decode was not driven)")
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    steps["cli_extract"] = _read_launches(gh, rb, "extract CLI")
+    fl, i8 = (np.load(os.path.join(work, f"{t}.npz")) for t in ("float",
+                                                                 "int8"))
+    if (fl["vecs"].shape != (len(imgs), 2048)
+            or not np.isfinite(fl["vecs"]).all()):
+        raise AssertionError(f"CLI index: shape {fl['vecs'].shape}")
+    if list(fl["names"]) != names or list(i8["names"]) != names:
+        raise AssertionError("CLI index names out of order")
+    q8_chk, s8_chk = topk_stream.quantize_gallery_int8(
+        torch.from_numpy(fl["vecs"]))
+    if not (np.array_equal(q8_chk.numpy(), i8["vecs_int8"])
+            and np.array_equal(s8_chk.numpy(), i8["scales"])):
+        raise AssertionError("the int8 index is not the float index "
+                             "quantized")
+    print(f"serving 6.1: fixture indexed via {route}: 2 x {len(imgs)} "
+          f"images at 1024 px ms3 in {cli_s:.2f} s (float + int8 index, "
+          f"model load included); launches {steps['cli_extract']}")
+
+    # -- 6.6 (run first: its descriptors head the gallery) ---------------
+    model = _load_model(EvalConfig(checkpoint=ckpt), device="cuda")
+    mem = cli_extract.extract_index(model, imgs, names, multiscale=True,
+                                    batch_size=8, device="cuda")["vecs"]
+    mem_map = _fixture_map(torch, mem, labels, q_idx)
+    jpeg_map = _fixture_map(torch, fl["vecs"], labels, q_idx)
+    if tuple(mem_map) != tuple(phase4_map):
+        raise AssertionError(f"CLI-path mAP {mem_map} != phase 4 "
+                             f"{phase4_map}")
+    print(f"serving 6.6: mAP of cli.extract's function on the in-memory "
+          f"fixture E/M/H {mem_map} == phase 4 {tuple(phase4_map)}; "
+          f"{'JPEG' if jpegs else 'in-memory'} route (cli.extract main) "
+          f"{jpeg_map} (printed, not checked)")
+    del model
+
+    # -- 6.2 a 1.4M x 2048 gallery on the card ----------------------------
+    t0 = time.perf_counter()
+    g32, g16, q8, s8 = _build_gallery(torch, mem, SERVE_N)
+    torch.cuda.synchronize()
+    print(f"serving 6.2: gallery {SERVE_N} x 2048 built on the card in "
+          f"{time.perf_counter() - t0:.2f} s: int8 {q8.numel() / 1e9:.3f} "
+          f"GB + scales, bf16 {2 * g16.numel() / 1e9:.3f} GB (fp32 "
+          f"{4 * g32.numel() / 1e9:.3f} GB kept for the recall reference)")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rq = torch.randn((64, 2048), device="cuda", generator=gen)
+    rq = (rq / torch.linalg.vector_norm(rq, dim=1, keepdim=True))
+    fq = torch.from_numpy(mem[q_idx]).cuda()
+
+    # direct engine calls: the chunk sweep and the stream's bound
+    for eng in ("int8", "exact"):
+        for chunk in (131072, 262144, None):
+            for nq in (1, 32):
+                q = rq[:nq]
+                if eng == "int8":
+                    fn = lambda: topk_stream.int8_streaming_topk(
+                        q, q8, s8, k=SERVE_K, chunk=chunk)
+                else:
+                    fn = lambda: topk_stream.scan_streaming_topk(
+                        q, g16, k=SERVE_K, chunk=chunk)
+                with torch.no_grad():
+                    ms = cuda_ms(torch, fn, iters=5, warmup=1)
+                print(f"serving engine {eng} Q={nq} chunk "
+                      f"{chunk or 'default'}: {ms:.4f} ms per call (CUDA "
+                      f"events, host dispatch included)")
+    print(f"serving engine bounds: int8 stream "
+          f"{q8.numel() / HBM_RATE * 1e3:.4f} ms ({q8.numel() / 1e9:.3f} GB "
+          f"at 3.35 TB/s), bf16 stream {2 * g16.numel() / HBM_RATE * 1e3:.4f}"
+          f" ms")
+
+    # -- 6.3 engine checks --------------------------------------------------
+    # int8 and exact-on-bf16 are the serving stores; the exact service on
+    # the fp32 gallery (the caller's tensor, no copy) fronts the HTTP step:
+    # with seeded random weights the fixture's descriptors lie closer
+    # together than int8 or bf16 storage resolves (printed below)
+    svc8 = SearchService(vecs_int8=q8, scales=s8, engine="int8", k=SERVE_K,
+                         max_batch=32)
+    svc16 = SearchService(g16, engine="exact", k=SERVE_K, max_batch=32,
+                          store_dtype="bfloat16")
+    svc32 = SearchService(g32, engine="exact", k=SERVE_K, max_batch=32,
+                          store_dtype="float32")
+    server = None
+    nq = len(q_idx)
+    lab = np.asarray(labels)
+    in_class = lambda ids: int(((ids < len(imgs)) & (lab[np.minimum(
+        ids, len(imgs) - 1)] == lab[q_idx])).sum())
+    try:
+        t0 = time.perf_counter()
+        for svc in (svc8, svc16, svc32):
+            svc.warmup()
+        print(f"serving 6.3: warmup of buckets 1..32 for three services "
+              f"{time.perf_counter() - t0:.2f} s")
+        with torch.no_grad():
+            direct = {name: [t.cpu().numpy() for t in fn()] for name, fn in (
+                ("int8", lambda: topk_stream.int8_streaming_topk(
+                    fq, q8, s8, k=SERVE_K)),
+                ("exact-bf16", lambda: topk_stream.scan_streaming_topk(
+                    fq, g16, k=SERVE_K, chunk=None)),
+                ("exact-fp32", lambda: topk_stream.scan_streaming_topk(
+                    fq, g32, k=SERVE_K, chunk=None)))}
+            ref = topk_stream.scan_streaming_topk(rq, g32, k=SERVE_K,
+                                                  chunk=None)[1].cpu()
+            r8 = topk_stream.int8_streaming_topk(rq, q8, s8,
+                                                 k=SERVE_K)[1].cpu()
+            r16 = topk_stream.scan_streaming_topk(rq, g16, k=SERVE_K,
+                                                  chunk=None)[1].cpu()
+        served, agree = {}, []
+        for name, svc in (("int8", svc8), ("exact-bf16", svc16),
+                          ("exact-fp32", svc32)):
+            sv, iv = served[name] = svc.search(mem[q_idx])
+            ds, di = direct[name]
+            n = _same_ids(f"{name} service vs engine", iv, di, sv)
+            check_close(f"{name} service scores", torch.from_numpy(sv),
+                        torch.from_numpy(ds), 0.0,
+                        0.0 if name == "int8" else 1e-5)
+            agree.append(f"{name} {n}")
+        s8v, i8v = served["int8"]
+        i16v = served["exact-bf16"][1]
+        s32v, i32v = served["exact-fp32"]
+        if not np.array_equal(i32v[:, 0], q_idx):
+            raise AssertionError(f"fp32 exact top-1 {i32v[:, 0]}: not the "
+                                 "queries' own rows")
+        # the int8 top-1 is the exact top-1 unless quantization reorders
+        # them: its int8 score is recomputed outside the engine, and the
+        # fp32 top-1 row's int8 score may not exceed it
+        own8 = _int8_pair_scores(torch, fq, q8, s8, i8v[:, 0])
+        top8 = _int8_pair_scores(torch, fq, q8, s8, i32v[:, 0])
+        check_close("int8 top-1 score vs recomputed", torch.from_numpy(
+            s8v[:, 0]), torch.from_numpy(own8), 1e-6, 0.0)
+        if (top8 > s8v[:, 0] + 1e-6).any():
+            raise AssertionError(f"the int8 engine missed the fp32 top-1 "
+                                 f"rows' higher int8 scores: {top8} vs "
+                                 f"{s8v[:, 0]}")
+        flips = int((i8v[:, 0] != i32v[:, 0]).sum())
+        # how far apart the fixture's descriptors are, against the int8
+        # score error on the queries' own rows
+        sim = mem[q_idx] @ mem.T
+        same = lab[None, :] == lab[q_idx][:, None]
+        sim[np.arange(nq), q_idx] = -np.inf
+        own_err = np.abs(_int8_pair_scores(torch, fq, q8, s8, q_idx)
+                         - np.einsum("qd,qd->q", mem[q_idx], mem[q_idx]))
+        margin = s32v[:, 0] - s32v[:, 1]
+        print(f"serving 6.3: fixture spread, fp32 cosine of each query to "
+              f"its nearest other row in its class: median "
+              f"{np.median(np.where(same, sim, -np.inf).max(1)):.6f}, in "
+              f"another class: median "
+              f"{np.median(np.where(same, -np.inf, sim).max(1)):.6f} max "
+              f"{np.where(same, -np.inf, sim).max():.6f}; fp32 top-1 / "
+              f"top-2 margin min {margin.min():.3e} median "
+              f"{np.median(margin):.3e}; int8 score error on the own rows: "
+              f"max {own_err.max():.3e}")
+        rec = lambda a, b: float(np.mean([len(set(x) & set(y)) / SERVE_K
+                                          for x, y in zip(a.numpy(),
+                                                          b.numpy())]))
+        print(f"serving 6.3: service == direct engine call on the {nq} "
+              f"fixture queries ({', '.join(agree)} distinct-score ids; "
+              f"int8 scores equal, float within 1e-5); fp32 exact top-1 == "
+              f"own row {nq}/{nq}; int8 top-1 == fp32 top-1 {nq - flips}/"
+              f"{nq} (the other {flips}: the int8 scores reorder the two "
+              f"rows, checked), in the query's class "
+              f"{in_class(i8v[:, 0])}/{nq}; bf16-store exact top-1 == fp32 "
+              f"{int((i16v[:, 0] == i32v[:, 0]).sum())}/{nq}, in class "
+              f"{in_class(i16v[:, 0])}/{nq}; recall@{SERVE_K} vs the exact "
+              f"fp32 engine, 64 random unit queries: int8 "
+              f"{rec(r8, ref):.4f}, exact on the bf16 store "
+              f"{rec(r16, ref):.4f}")
+        del ref
+
+        # -- 6.4 latency ----------------------------------------------------
+        queries = rq.cpu().numpy()
+        for name, svc in (("int8", svc8), ("exact-bf16", svc16)):
+            for clients in (1, 8):
+                r = _load_clients(svc, queries, clients, 40, SERVE_K)
+                print(f"serving 6.4 latency {name} engine, {clients} "
+                      f"client(s) x 40 one-query requests, k={SERVE_K}, "
+                      f"N={SERVE_N}: p50 {r['p50']:.3f} ms, p99 "
+                      f"{r['p99']:.3f} ms, {r['qps']:.1f} QPS, "
+                      f"engine_calls {r['engine_calls']}, "
+                      f"coalesced_batches {r['batches']} (host clock, "
+                      f"window 2 ms)")
+
+        # -- 6.5 HTTP with an ImageExtractor ---------------------------------
+        _reset_launches(gh, rb)
+        extractor = ImageExtractor("gem_r50", checkpoint=ckpt, imsize=1024,
+                                   multiscale=True, batch_size=8)
+        sock = socket.socket()
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+        sock.close()
+        server = make_http_server(svc32, port=port, extractor=extractor)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        url = f"http://127.0.0.1:{port}"
+        import urllib.request
+
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        if health["gallery_size"] != SERVE_N or not health["image_search"]:
+            raise AssertionError(f"/healthz: {health}")
+        out = _post(url + "/search", {"vectors": mem[q_idx].tolist(),
+                                      "k": SERVE_K})
+        ids = np.array([[m["index"] for m in r["matches"]]
+                        for r in out["results"]])
+        _same_ids("POST /search vs service", ids, i32v, s32v)
+        got = extractor([imgs[i] for i in q_idx])
+        dev_err = float(np.abs(got - mem[q_idx]).max())
+        if dev_err > 1e-5:
+            raise AssertionError(f"ImageExtractor descriptors differ from "
+                                 f"the index rows by {dev_err:.3e}")
+        _, i_raw = svc32.search(got, k=1)
+        if not np.array_equal(i_raw[:, 0], q_idx):
+            raise AssertionError(f"ImageExtractor on raw arrays: top-1 "
+                                 f"{i_raw[:, 0]}, want {q_idx}")
+        _, i_raw8 = svc8.search(got, k=1)
+        msg = "no JPEG encoder: /search/image not driven"
+        if jpegs is not None:
+            t0 = time.perf_counter()
+            out = _post(url + "/search/image", {
+                "images_b64": [base64.b64encode(jpegs[i]).decode()
+                               for i in q_idx], "k": 5})
+            img_s = time.perf_counter() - t0
+            top = np.array([r["matches"][0]["index"] for r in out["results"]])
+            if in_class(top) != nq:
+                raise AssertionError(f"/search/image top-1 {top} not in "
+                                     "the queries' classes")
+            jv = extractor([decode_image_bytes(jpegs[i], max_side=1024)
+                            for i in q_idx])
+            _, top8 = svc8.search(jv, k=1)
+            cos = np.einsum("qd,qd->q", jv, mem[q_idx])
+            msg = (f"POST /search/image, {nq} JPEG queries in one request "
+                   f"({img_s:.2f} s): top-1 in its own class {nq}/{nq}, "
+                   f"its own row {int((top == q_idx).sum())}/{nq} (on the "
+                   f"int8 service: class {in_class(top8[:, 0])}/{nq}, own "
+                   f"row {int((top8[:, 0] == q_idx).sum())}/{nq}); cosine "
+                   f"of each JPEG query to its raw image's row: min "
+                   f"{cos.min():.6f}")
+        steps["image_extractor"] = _read_launches(gh, rb, "HTTP / image")
+        print(f"serving 6.5: HTTP over the fp32 exact service: GET /healthz "
+              f"ok; POST /search == service ids, own rows {nq}/{nq}; "
+              f"ImageExtractor on the raw query arrays: within "
+              f"{dev_err:.2e} of the index rows, own row at top-1 {nq}/{nq} "
+              f"(int8 service {int((i_raw8[:, 0] == q_idx).sum())}/{nq}); "
+              f"{msg}; launches {steps['image_extractor']}")
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        for svc in (svc8, svc16, svc32):
+            svc.close()
+    shutil.rmtree(work, ignore_errors=True)
+    return steps
+
+
 def main() -> int:
     import torch
 
@@ -667,6 +1146,13 @@ def main() -> int:
           f"(host clock, warm)")
     phase_profile(torch, run, f"extract_vectors, {len(imgs64)} images, "
                   "1024 px ms3")
+    del imgs64
+    torch.cuda.empty_cache()
+
+    # -- 6: the serving stack at full width -------------------------------
+    t0 = time.perf_counter()
+    serving = phase_serving(torch, gh, rb, gpu_model, res["mAP"])
+    print(f"serving phase: {time.perf_counter() - t0:.1f} s")
 
     src = "research_image_retrieval_tpu_torch/csrc/"
     replaces = {
@@ -675,7 +1161,9 @@ def main() -> int:
     }
     kernels = [dict(name=name, route="cuda", source=f"{src}{name}.cu",
                     replaces=replaces[name], launches=launches[name],
-                    library_ms=None, **rows[name])
+                    library_ms=None, **rows[name],
+                    serving_launches={step: n[name]
+                                      for step, n in serving.items()})
                for name in ("gem_head", "bottleneck")]
     print(json.dumps({"kernels": kernels}))
     print(f"gpu: {smi}")

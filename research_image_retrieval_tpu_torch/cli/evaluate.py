@@ -1,0 +1,86 @@
+"""Evaluation CLI: extract + rank + Revisited protocol mAP
+(port of ``research_image_retrieval_tpu/cli/evaluate.py`` with the flags
+of what the port has: multiscale, host scales, alpha-QE and PCA
+whitening; IQE, SuperGlobal, CVNet, local reranking and the split DCT
+decode are not ported yet).  A dataset missing under ``--data-root``
+falls back to the synthetic fixture and says so.
+
+    python -m research_image_retrieval_tpu_torch.cli.evaluate \
+        --model gem_r50 --datasets roxford5k rparis6k \
+        --data-root /data/revisited --checkpoint gem_r50.pt \
+        --multiscale --alpha-qe [--device cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Revisited-protocol evaluation")
+    p.add_argument("--model", default="gem_r50")
+    p.add_argument("--datasets", nargs="+", default=["roxford5k", "rparis6k"])
+    p.add_argument("--data-root", default="")
+    p.add_argument("--imsize", type=int, default=1024)
+    p.add_argument("--checkpoint", default=None,
+                   help=".pt state dict or .npz of flattened flax variables")
+    p.add_argument("--host-scales", action="store_true",
+                   help="multi-scale resizes on the host instead of the "
+                        "device (debug)")
+    p.add_argument("--multiscale", action="store_true",
+                   help="3-scale extraction (1, 1/sqrt(2), 1/2)")
+    p.add_argument("--alpha-qe", action="store_true")
+    p.add_argument("--qe-k", type=int, default=10)
+    p.add_argument("--qe-alpha", type=float, default=3.0)
+    p.add_argument("--pca-whiten", action="store_true",
+                   help="learn PCA whitening on the gallery, apply both sides")
+    p.add_argument("--pca-dim", type=int, default=0)
+    p.add_argument("--pca-shrinkage", type=float, default=1.0)
+    p.add_argument("--output", default=None, help="write results JSON here")
+    p.add_argument("--output-csv", default=None,
+                   help="write a combined CSV (dataset, easy, medium, hard)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a card) or cpu")
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+
+    from research_image_retrieval_tpu_torch.evaluation.driver import evaluate
+    from research_image_retrieval_tpu_torch.utils.config import EvalConfig
+
+    cfg = EvalConfig(
+        model=args.model,
+        datasets=tuple(args.datasets),
+        data_root=args.data_root,
+        imsize=args.imsize,
+        checkpoint=args.checkpoint,
+        multiscale=(1.0, 2**-0.5, 0.5) if args.multiscale else (1.0,),
+        device_scales=not args.host_scales,
+        alpha_qe=args.alpha_qe,
+        qe_k=args.qe_k,
+        qe_alpha=args.qe_alpha,
+        pca_whiten=args.pca_whiten,
+        pca_dim=args.pca_dim,
+        pca_shrinkage=args.pca_shrinkage,
+    )
+    results = evaluate(cfg, device=args.device)
+    if args.output:
+        with open(args.output, "w") as f:
+            json.dump({k: list(v) if isinstance(v, tuple) else v
+                       for k, v in results.items()}, f, indent=2)
+        print(f">> wrote {args.output}")
+    if args.output_csv:
+        with open(args.output_csv, "w") as f:
+            f.write("dataset,mAP_easy,mAP_medium,mAP_hard\n")
+            for ds, res in results.items():
+                e, m, h = res if isinstance(res, tuple) else (res, res, res)
+                f.write(f"{ds},{e},{m},{h}\n")
+        print(f">> wrote {args.output_csv}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

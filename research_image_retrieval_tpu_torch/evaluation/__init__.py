@@ -1,5 +1,6 @@
 from research_image_retrieval_tpu_torch.evaluation.driver import (
     EvalConfig,
+    evaluate,
     evaluate_synthetic,
 )
 from research_image_retrieval_tpu_torch.evaluation.revisited import (
@@ -10,4 +11,4 @@ from research_image_retrieval_tpu_torch.evaluation.revisited import (
 )
 
 __all__ = ["EvalConfig", "compute_ap", "compute_map", "compute_map_and_print",
-           "evaluate_revisited", "evaluate_synthetic"]
+           "evaluate", "evaluate_revisited", "evaluate_synthetic"]

@@ -1,40 +1,117 @@
 """Evaluation driver: extract -> rank -> Revisited protocol mAP
-(port of ``evaluate_synthetic`` of
-``research_image_retrieval_tpu/evaluation/driver.py``).
+(port of ``research_image_retrieval_tpu/evaluation/driver.py``: model
+loading, ``evaluate`` with PCA whitening and alpha-QE, and
+``evaluate_synthetic``; IQE, SuperGlobal, CVNet and local reranking are
+not ported yet).
 
-The Revisited datasets are not in the repository, so the slice is scored
-on the deterministic synthetic fixture, as the JAX driver's
-``evaluate_synthetic`` does.
+A dataset whose directory is missing falls back to the synthetic fixture
+and says so.  Checkpoints are ``.pt`` / ``.pth`` state dicts (the port's
+model, or a torchvision-layout ResNet for the backbone) or an ``.npz`` of
+flax variables flattened with ``/`` keys (``params/backbone/conv1/kernel``
+...); an orbax checkpoint directory cannot be read without orbax.
 """
 
 from __future__ import annotations
 
-import dataclasses
+import os
 
 import numpy as np
+import torch
 
 from research_image_retrieval_tpu_torch.data import (
+    IMAGENET_MEAN,
+    IMAGENET_STD,
+    ImageFromList,
+    PrefetchedImages,
+    RevisitedDataset,
     SyntheticRetrievalDataset,
     make_synthetic_gnd,
 )
 from research_image_retrieval_tpu_torch.evaluation.revisited import (
     compute_map_and_print,
 )
-from research_image_retrieval_tpu_torch.index import extract_vectors, rank_full
+from research_image_retrieval_tpu_torch.index import (
+    alpha_query_expansion,
+    extract_vectors,
+    rank_full,
+)
+from research_image_retrieval_tpu_torch.models import (
+    from_jax_variables,
+    get_model,
+    load_torchvision_resnet,
+    seeded_init,
+)
+from research_image_retrieval_tpu_torch.ops.norm import l2_normalize
+from research_image_retrieval_tpu_torch.ops.whiten import (
+    apply_whitening,
+    pca_whiten_learn,
+)
+from research_image_retrieval_tpu_torch.utils.config import EvalConfig
 from research_image_retrieval_tpu_torch.utils.device import resolve_device
 
-__all__ = ["EvalConfig", "evaluate_synthetic"]
+__all__ = ["EvalConfig", "evaluate", "evaluate_synthetic", "load_checkpoint"]
 
 
-@dataclasses.dataclass
-class EvalConfig:
-    """The evaluation settings ``evaluate_synthetic`` reads (the same
-    names and defaults as the JAX ``EvalConfig``)."""
+def _unflatten(flat) -> dict:
+    tree: dict = {}
+    for key in flat:
+        node = tree
+        *parents, leaf = key.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = flat[key]
+    return tree
 
-    imsize: int = 1024
-    multiscale: tuple = (1.0,)  # or (1.0, 2**-0.5, 0.5)
-    bucket: int = 128
-    kappas: tuple = (1, 5, 10)
+
+def load_checkpoint(path: str) -> tuple[dict, bool]:
+    """(state dict, whether it holds only a backbone) from ``path``."""
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is a directory (an orbax checkpoint?); the port reads "
+            "a .pt / .pth state dict or an .npz of flax variables flattened "
+            "with '/' keys (params/..., batch_stats/...)")
+    if path.endswith(".npz"):
+        with np.load(path, allow_pickle=False) as flat:
+            variables = _unflatten({k: flat[k] for k in flat.files})
+        if "params" not in variables:
+            raise ValueError(f"{path}: no 'params/...' keys "
+                             f"(keys: {sorted(variables)})")
+        sd = from_jax_variables(variables)
+        return sd, "whiten.weight" not in sd
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if "whiten.weight" in sd:
+        return sd, False
+    return {f"backbone.{k}": v
+            for k, v in load_torchvision_resnet(sd).items()}, True
+
+
+def _load_model(cfg: EvalConfig, device="cuda", num_classes: int = 81313):
+    """The configured model in eval mode on ``device``.  Weights come from
+    ``cfg.checkpoint`` (the classifier's size from the checkpoint's, when
+    it has one), else from ``seeded_init(seed=0)``; a backbone-only
+    checkpoint keeps the seeded whiten projection."""
+    dev = resolve_device(device)
+    overrides = dict(cfg.model_overrides)
+    sd, backbone_only = (load_checkpoint(cfg.checkpoint) if cfg.checkpoint
+                         else (None, False))
+    if sd is not None and "classifier_w" in sd:
+        overrides.setdefault("num_classes", int(sd["classifier_w"].shape[0]))
+    overrides.setdefault("num_classes", num_classes)
+    model = get_model(cfg.model, **overrides)
+    seeded_init(model, seed=0)
+    if sd is not None:
+        missing, unexpected = model.load_state_dict(sd, strict=False)
+        allowed = {"classifier_w"} | ({"whiten.weight", "whiten.bias"}
+                                      if backbone_only else set())
+        if unexpected or set(missing) - allowed:
+            raise ValueError(
+                f"checkpoint {cfg.checkpoint} does not fit {cfg.model}: "
+                f"missing {sorted(set(missing) - allowed)}, unexpected "
+                f"{sorted(unexpected)}")
+        if backbone_only:
+            print(f">> {cfg.checkpoint}: backbone only; the whiten "
+                  "projection keeps its seeded init")
+    return model.to(dev).eval()
 
 
 def _make_extract_fn(model, bucket: int = 128):
@@ -43,13 +120,75 @@ def _make_extract_fn(model, bucket: int = 128):
     return (lambda x, valid_hw=None: model.extract(x, valid_hw)), bucket
 
 
+def _whiten(vecs, qvecs, cfg: EvalConfig, device):
+    """PCA whitening learned on the gallery descriptors, applied to both
+    sides and re-L2-normalized."""
+    m, P = pca_whiten_learn(np.asarray(vecs), s=cfg.pca_shrinkage)
+    dim = cfg.pca_dim or None
+
+    def white(x):
+        t = torch.as_tensor(np.asarray(x, np.float32), device=device)
+        return l2_normalize(apply_whitening(t, m, P, out_dim=dim)).cpu() \
+            .numpy()
+
+    return white(vecs), white(qvecs)
+
+
+def _expand(qvecs, vecs, cfg: EvalConfig, device):
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
+    return alpha_query_expansion(t(qvecs), t(vecs), k=cfg.qe_k,
+                                 alpha=cfg.qe_alpha).cpu().numpy()
+
+
+def evaluate(cfg: EvalConfig, device="cuda") -> dict:
+    """Evaluate on the configured Revisited datasets on ``device``;
+    returns ``{dataset: (E, M, H)}`` mAP in percent."""
+    dev = resolve_device(device)
+    model = _load_model(cfg, device=dev)
+    extract, bucket = _make_extract_fn(model, bucket=cfg.bucket)
+    results = {}
+    with torch.no_grad():
+        for dataset in cfg.datasets:
+            gnd_file = os.path.join(cfg.data_root, dataset,
+                                    f"gnd_{dataset}.pkl")
+            if not os.path.exists(gnd_file):
+                print(f">> {dataset}: dataset not found at {cfg.data_root}; "
+                      "using the SYNTHETIC fixture (clearly not real data)")
+                results[dataset] = evaluate_synthetic(model, cfg, device=dev)
+                continue
+            ds = RevisitedDataset(dataset, cfg.data_root)
+            # device_scales: raw uint8 to the device, normalization and
+            # scale resizes there
+            dsc = cfg.device_scales
+            norm = (IMAGENET_MEAN, IMAGENET_STD) if dsc else None
+            db_loader = PrefetchedImages(ImageFromList(
+                ds.im_fnames, imsize=cfg.imsize, raw_uint8=dsc))
+            q_loader = PrefetchedImages(ImageFromList(
+                ds.qim_fnames, imsize=cfg.imsize,
+                bbxs=[ds.query_bbx(i) for i in range(ds.nq)], raw_uint8=dsc))
+            kw = dict(scales=cfg.multiscale, print_freq=100, bucket=bucket,
+                      device_scales=dsc, input_norm=norm, device=dev)
+            vecs = extract_vectors(extract, db_loader, **kw)
+            qvecs = extract_vectors(extract, q_loader, **kw)
+            if cfg.pca_whiten:
+                vecs, qvecs = _whiten(vecs, qvecs, cfg, dev)
+            if cfg.alpha_qe:
+                qvecs = _expand(qvecs, vecs, cfg, dev)
+            ranks = rank_full(qvecs, vecs, device=dev)
+            results[dataset] = compute_map_and_print(
+                dataset, "global", "test", ranks, ds.gnd,
+                kappas=list(cfg.kappas))
+    return results
+
+
 def evaluate_synthetic(model, cfg: EvalConfig = EvalConfig(),
                        device="cuda") -> tuple:
     """Deterministic synthetic evaluation (pipeline smoke metric).
 
     ``model`` (in eval mode) extracts 12 classes x 8 renders at
     ``min(cfg.imsize, 128)`` px on ``device``; the first render of each
-    class is its query.  Returns the (E, M, H) mAP in percent.
+    class is its query; PCA whitening and alpha-QE follow ``cfg`` in
+    ``evaluate``'s order.  Returns the (E, M, H) mAP in percent.
     """
     dev = resolve_device(device)
     ds = SyntheticRetrievalDataset(num_classes=12, samples_per_class=8,
@@ -59,7 +198,12 @@ def evaluate_synthetic(model, cfg: EvalConfig = EvalConfig(),
     vecs = extract_vectors(extract, list(imgs), scales=cfg.multiscale,
                            bucket=bucket, device=dev)
     q_idx = np.arange(0, len(ds), 8)
+    qvecs = vecs[q_idx]
+    if cfg.pca_whiten:
+        vecs, qvecs = _whiten(vecs, qvecs, cfg, dev)
+    if cfg.alpha_qe:
+        qvecs = _expand(qvecs, vecs, cfg, dev)
     gnd = make_synthetic_gnd(labels, q_idx)
-    ranks = rank_full(vecs[q_idx], vecs, device=dev)
+    ranks = rank_full(qvecs, vecs, device=dev)
     return compute_map_and_print("roxford5k", "global", "synthetic", ranks,
                                  gnd, kappas=list(cfg.kappas))

@@ -21,11 +21,20 @@ from research_image_retrieval_tpu_torch.ops.resblock import (
 )
 from research_image_retrieval_tpu_torch.ops.resize import dense_resize_weights
 from research_image_retrieval_tpu_torch.ops.topk_stream import (
+    approx_streaming_topk,
+    int8_streaming_topk,
+    quantize_gallery_int8,
     scan_streaming_topk,
     streaming_topk,
 )
+from research_image_retrieval_tpu_torch.ops.whiten import (
+    apply_whitening,
+    pca_whiten_learn,
+)
 
 __all__ = [
+    "apply_whitening",
+    "approx_streaming_topk",
     "ceil_half",
     "dense_resize_weights",
     "downsample_extents",
@@ -37,7 +46,10 @@ __all__ = [
     "gem_whiten_l2",
     "gem_whiten_l2_reference",
     "hw_mask",
+    "int8_streaming_topk",
     "l2_normalize",
+    "pca_whiten_learn",
+    "quantize_gallery_int8",
     "scan_streaming_topk",
     "streaming_topk",
 ]

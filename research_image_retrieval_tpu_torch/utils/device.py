@@ -9,6 +9,7 @@ it (the tests do).
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
 
@@ -26,10 +27,23 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+class _Fp32Scope:
+    """Process-wide count of open ``fp32_precision`` blocks.  The TF32
+    flags are global, so with blocks open on several threads (the search
+    worker and an HTTP handler extracting an image) the first block to
+    open saves the caller's flags and the last to close restores them;
+    a block never sees TF32 turned back on under it."""
+
+    lock = threading.Lock()
+    depth = 0
+    saved = None
+
+
 @contextlib.contextmanager
 def fp32_precision():
     """Full fp32 (TF32 off) for the cuDNN convolutions and cuBLAS matmuls
-    run inside the block; the caller's settings are restored on exit.
+    run inside the block; the caller's settings are restored when the
+    last open block (on any thread) exits.
 
     cuDNN runs fp32 convolutions in TF32 by default (about three decimal
     digits), which breaks the 1e-4 descriptor parity with the JAX
@@ -39,9 +53,15 @@ def fp32_precision():
     process-wide flag is left changed.
     """
     cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-    saved = cudnn.allow_tf32, matmul.allow_tf32
-    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    with _Fp32Scope.lock:
+        if _Fp32Scope.depth == 0:
+            _Fp32Scope.saved = cudnn.allow_tf32, matmul.allow_tf32
+            cudnn.allow_tf32 = matmul.allow_tf32 = False
+        _Fp32Scope.depth += 1
     try:
         yield
     finally:
-        cudnn.allow_tf32, matmul.allow_tf32 = saved
+        with _Fp32Scope.lock:
+            _Fp32Scope.depth -= 1
+            if _Fp32Scope.depth == 0:
+                cudnn.allow_tf32, matmul.allow_tf32 = _Fp32Scope.saved

@@ -114,7 +114,8 @@ def test_port_imports_no_jax_source_scan():
 
 
 def test_port_imports_no_jax_at_runtime():
-    """Importing every port module with jax and the JAX package blocked."""
+    """Importing every port module (the serving stack and the CLIs
+    included) with jax and the JAX package blocked."""
     code = (
         "import sys\n"
         "for m in ('jax', 'flax', 'research_image_retrieval_tpu', 'tools'):\n"
@@ -124,6 +125,11 @@ def test_port_imports_no_jax_at_runtime():
         "import research_image_retrieval_tpu_torch.index\n"
         "import research_image_retrieval_tpu_torch.evaluation\n"
         "import research_image_retrieval_tpu_torch.data\n"
+        "import research_image_retrieval_tpu_torch.serve\n"
+        "import research_image_retrieval_tpu_torch.cli.evaluate\n"
+        "import research_image_retrieval_tpu_torch.cli.extract\n"
+        "import research_image_retrieval_tpu_torch.cli.search\n"
+        "import research_image_retrieval_tpu_torch.cli.serve\n"
         "import chip_smoke\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
