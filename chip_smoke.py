@@ -27,7 +27,18 @@ Phases (any failure raises and exits non-zero; there is no fallback):
      engine calls and timed under 1 and 8 clients, the HTTP front end
      answers vector and image queries through an ``ImageExtractor``, and
      the CLI path's mAP equals phase 4's; both kernels' launches are
-     counted on the CLI step and on the HTTP / image step.
+     counted on the CLI step and on the HTTP / image step;
+  7. training on the card, under fp32 (TF32 off) as the trainer runs:
+     7.1 the train step at full width (GeM-R50, 81,313-way ArcFace,
+     512 px, TrainConfig's batch or the largest power of two that fits):
+     ms per step, img/s, peak memory, TFLOP/s against the fp32 bound, a
+     profiler breakdown, and one reduced step on the card against the CPU;
+     7.2 ``cli.train.main`` over an 81,313-way ``.rirrec`` file for 2
+     epochs (img/s with the host pipeline, the busy share, the JSONL
+     history), and a preemption stop + ``--resume`` against the straight
+     run; 7.3 the rigorous synthetic task trained by ``train(cfg)``, its
+     test images through both kernels (launches counted, held against the
+     plain versions), accuracy and mAP beside the JAX record.
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Needs a CUDA device and the repo.
 """
@@ -199,8 +210,7 @@ def procedural_images(sizes, seed):
     rng = np.random.default_rng(seed)
     out = []
     for h, w in sizes:
-        yy, xx = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w),
-                             indexing="ij")
+        yy, xx = np.linspace(0, 1, h)[:, None], np.linspace(0, 1, w)[None, :]
         chans = []
         for _ in range(3):
             f1, f2, p1, p2 = rng.uniform(2, 9, 4)
@@ -1036,6 +1046,471 @@ def phase_serving(torch, gh, rb, gpu_model, phase4_map) -> dict:
     return steps
 
 
+# -- phase 7: training on the card -------------------------------------------
+
+TRAIN_PX = 512          # TrainConfig.imsize
+TRAIN_CLASSES = 81313   # the GLDv2-clean head
+RIGOROUS = dict(test_accuracy=98.6, reference_mAP=0.7832,
+                self_excluded_mAP=0.9967)  # benchmarks/rigorous_synthetic_gem_r50.json
+RIGOROUS_PX, RIGOROUS_EPOCHS = 224, 6  # that record's config
+TRAIN_GROUPS = (  # (group, substrings of lower-cased kernel names)
+    ("batch norm", ("batch_norm", "bn_fw", "bn_bw")),
+    ("cuDNN layout transposes", ("nchwtonhwc", "nhwctonchw")),
+    ("conv backward (weight)", ("wgrad",)),
+    ("conv backward (data)", ("dgrad",)),
+    ("conv forward", ("fprop", "convolve", "conv", "implicit_gemm",
+                      "xmma")),
+    ("optimizer (foreach)", ("multi_tensor", "foreach")),
+    ("classifier / whiten GEMMs", ("gemm", "cutlass", "kernel2")),
+)
+
+
+def _leaf_devs(got: dict, want: dict) -> dict:
+    """Per key: max |got - want| over the largest |want| of the leaf."""
+    return {k: float((got[k] - want[k]).abs().max()
+                     / want[k].abs().max().clamp(min=1e-30)) for k in want}
+
+
+def conv_linear_macs(torch, model, px: int) -> int:
+    """Multiply-adds of one image's forward through every Conv2d and Linear
+    of ``model`` at ``px`` x ``px`` (counted from the layers' shapes)."""
+    macs = []
+
+    def conv(m, i, o):
+        macs.append(o.numel() // o.shape[0] * m.in_channels // m.groups
+                    * m.kernel_size[0] * m.kernel_size[1])
+
+    hooks = [m.register_forward_hook(conv) for m in model.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    with torch.no_grad():
+        model.backbone(torch.zeros(1, px, px, 3, device=next(
+            model.parameters()).device))
+    for h in hooks:
+        h.remove()
+    lin = model.whiten.in_features * model.whiten.out_features \
+        + model.classifier_w.numel()
+    return sum(macs) + lin
+
+
+def _grouped(rows, groups, fallback="elementwise / other"):
+    out: dict[str, float] = {}
+    for e in rows:
+        key = e.key.lower()
+        g = next((name for name, keys in groups
+                  if any(k in key for k in keys)), fallback)
+        out[g] = out.get(g, 0.0) + e.self_device_time_total / 1e3
+    return out
+
+
+def phase_train_step(torch, smi: str) -> dict:
+    """7.1: the train step at full width (GeM-R50, 81,313-way ArcFace,
+    512 px uint8 batches drawn on the card, SGD with TrainConfig's
+    defaults), at TrainConfig's batch or the largest power of two below
+    it that fits; then the same step at reduced size against the CPU."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from research_image_retrieval_tpu_torch.data import (
+        IMAGENET_MEAN,
+        IMAGENET_STD,
+    )
+    from research_image_retrieval_tpu_torch.models import get_model
+    from research_image_retrieval_tpu_torch.train import (
+        create_train_state,
+        make_sgd_optimizer,
+        make_train_step,
+    )
+    from research_image_retrieval_tpu_torch.train.device_check import (
+        SHAPE as STEP_CHECK,
+    )
+    from research_image_retrieval_tpu_torch.train.device_check import (
+        check_cuda_train_step,
+    )
+    from research_image_retrieval_tpu_torch.utils.config import TrainConfig
+
+    cfg = TrainConfig()
+    t0 = time.perf_counter()
+    state = create_train_state(
+        get_model("gem_r50", num_classes=TRAIN_CLASSES), 0,
+        make_sgd_optimizer(cfg.base_lr, momentum=cfg.momentum,
+                           weight_decay=cfg.weight_decay,
+                           clip_max_norm=cfg.clip_max_norm), device="cuda")
+    init_s = time.perf_counter() - t0
+    step = make_train_step((IMAGENET_MEAN, IMAGENET_STD))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    B, tried = cfg.batch_size, []
+    while True:
+        try:
+            x = torch.randint(0, 256, (B, TRAIN_PX, TRAIN_PX, 3),
+                              dtype=torch.uint8, device="cuda", generator=g)
+            y = torch.randint(0, TRAIN_CLASSES, (B,), device="cuda",
+                              generator=g)
+            torch.cuda.reset_peak_memory_stats()
+            state, m = step(state, x, y)
+            torch.cuda.synchronize()
+            break
+        except torch.cuda.OutOfMemoryError:
+            tried.append(B)
+            x = y = None
+            state.optimizer.zero_grad()
+            torch.cuda.empty_cache()
+            B //= 2
+            if B < 8:
+                raise
+    if tried:
+        print(f"train 7.1: batch {tried} does not fit in device memory; "
+              f"cut to {B} (the largest power of two that fits)")
+    for _ in range(2):
+        state, m = step(state, x, y)
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(10):
+        state, m = step(state, x, y)
+    b.record()
+    b.synchronize()
+    ms = a.elapsed_time(b) / 10
+    peak = torch.cuda.max_memory_allocated()
+    loss, gn = float(m["loss"]), float(m["grad_norm"])
+    bad = [n for n, p in state.model.named_parameters()
+           if not bool(torch.isfinite(p.grad).all())]
+    if not (math.isfinite(loss) and math.isfinite(gn)) or bad:
+        raise AssertionError(f"train step: loss {loss}, grad_norm {gn}, "
+                             f"non-finite gradients in {bad[:5]}")
+    flops = 3 * 2 * conv_linear_macs(torch, state.model, TRAIN_PX) * B
+    bound = flops / FP32_PEAK * 1e3
+    print(f"train 7.1: GeM-R50, {TRAIN_CLASSES}-way ArcFace (s 32, m 0.15), "
+          f"{TRAIN_PX} px uint8, batch {B}, SGD lr {cfg.base_lr} nesterov "
+          f"momentum {cfg.momentum} wd {cfg.weight_decay} clip "
+          f"{cfg.clip_max_norm}: {ms:.1f} ms per step (10 steps between CUDA "
+          f"events after 3), {1e3 * B / ms:.1f} img/s, peak "
+          f"{peak / 2 ** 30:.2f} GiB allocated, "
+          f"{flops / ms / 1e9:.1f} TFLOP/s of {flops / B / 1e9:.1f} GFLOP "
+          f"per image (3 x forward conv + linear FLOPs) against the fp32 FMA "
+          f"bound {bound:.1f} ms ({100 * bound / ms:.1f}%); loss {loss:.4f}, "
+          f"grad_norm {gn:.4f}; model init {init_s:.1f} s [{smi}]")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, m = step(state, x, y)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0 and "Memcpy" not in e.key
+            and "Memset" not in e.key]
+    if rows:
+        groups = _grouped(rows, TRAIN_GROUPS)
+        total = sum(groups.values())
+        print(f"train 7.1 profile (one step, printed only): {total:.1f} ms "
+              "of kernels")
+        for name, t in sorted(groups.items(), key=lambda kv: -kv[1]):
+            print(f"  group {t:9.2f} ms {100 * t / total:5.1f}%  {name}")
+        rows.sort(key=lambda e: -e.self_device_time_total)
+        for e in rows[:10]:
+            t = e.self_device_time_total / 1e3
+            print(f"  {t:9.2f} ms {100 * t / total:5.1f}% x{e.count:<5d} "
+                  f"{e.key[:100]}")
+    else:
+        print("train 7.1 profile: no device time recorded (not measured)")
+    del state, x, y, m, prof
+    torch.cuda.empty_cache()
+    par = check_cuda_train_step()
+    print(f"train 7.1: one step at batch {STEP_CHECK['batch']}, "
+          f"{STEP_CHECK['px']} px, resnet50, {STEP_CHECK['classes']} classes, "
+          "cuda vs cpu from one state in float64 (deviation / bar, worst "
+          "leaf): " + "; ".join(f"{k} {d:.2e} / {b} {leaf}"
+                                for k, (d, b, leaf) in par.items())
+          + "; in float32, TF32 off through backward() and the caller's "
+          "flags restored")
+    return dict(batch=B, ms=ms, peak=peak, tried=tried)
+
+
+def _record_file(path: str, n_classes: int = 128, per_class: int = 2):
+    """``n_classes`` x ``per_class`` procedural JPEGs at 512 x 683 (seeded)
+    under labels spread across the 81,313-way head, 81312 included."""
+    from research_image_retrieval_tpu_torch.data import write_records
+
+    enc = _jpeg_encoder()
+    if enc is None:
+        raise AssertionError("no JPEG encoder (OpenCV or PIL) for phase 7.2")
+    labels = np.round(np.linspace(0, TRAIN_CLASSES - 1, n_classes)).astype(int)
+    imgs = procedural_images([(512, 683)] * (n_classes * per_class), seed=71)
+    items = ((enc(im), int(labels[i // per_class]))
+             for i, im in enumerate(imgs))
+    return write_records(path, items)
+
+
+def _stop_after(n: int):
+    """A ``PreemptionGuard`` class whose guard asks to stop after ``n``
+    steps (``request_stop``, as a SIGTERM would)."""
+    from research_image_retrieval_tpu_torch.train.preemption import (
+        PreemptionGuard,
+    )
+
+    class Guard(PreemptionGuard):
+        def __init__(self):
+            super().__init__(signals=())
+            self.seen = 0
+
+        @property
+        def should_stop(self):
+            self.seen += 1
+            if self.seen >= n:
+                self.request_stop()
+            return super().should_stop
+
+    return Guard
+
+
+def phase_train_cli(torch, gh, rb, smi: str) -> dict:
+    """7.2: ``cli.train.main`` over an 81,313-way record file, twice from
+    the same seed: straight through 2 epochs (profiled: img/s with the
+    host pipeline, the card's busy share), and stopped by the preemption
+    guard after epoch 0 then resumed; the two runs' final parameters are
+    compared (cuDNN deterministic in both)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from research_image_retrieval_tpu_torch.cli.train import main as train_cli
+    from research_image_retrieval_tpu_torch.models import (
+        get_model,
+        training_init,
+    )
+    from research_image_retrieval_tpu_torch.train import driver as drv
+
+    work = os.path.join(ROOT, "build", "chip_smoke_train")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    rec = os.path.join(work, "train.rirrec")
+    t0 = time.perf_counter()
+    n = _record_file(rec)
+    print(f"train 7.2: wrote {n} JPEGs (512 x 683, 2 per class, 128 labels "
+          f"in [0, {TRAIN_CLASSES})) to a .rirrec in "
+          f"{time.perf_counter() - t0:.1f} s")
+    B, per_epoch = 32, 4  # 128 train images (one per class to validation)
+    args = ["--data-root", rec, "--device", "cuda", "--num-epochs", "2",
+            "--batch-size", str(B), "--imsize", str(TRAIN_PX),
+            "--num-workers", "8", "--save-freq", "2"]
+    real_step, real_guard = drv.make_train_step, drv.PreemptionGuard
+    calls: list[float] = []
+
+    def timed_factory(input_norm=None):
+        step = real_step(input_norm)
+
+        def timed(state, imgs, labels):
+            calls.append(time.perf_counter())
+            with record_function("train_step"):
+                return step(state, imgs, labels)
+        return timed
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    gh.gem_whiten_l2.launches = 0
+    rb.fused_bottleneck.launches = 0
+    try:
+        drv.make_train_step = timed_factory
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            train_cli(args + ["--directory", os.path.join(work, "a")])
+            torch.cuda.synchronize()
+        wall_a = time.perf_counter() - t0
+        drv.make_train_step = real_step
+        launches = {"gem_head": gh.gem_whiten_l2.launches,
+                    "bottleneck": rb.fused_bottleneck.launches}
+        t0 = time.perf_counter()
+        drv.PreemptionGuard = _stop_after(per_epoch)
+        train_cli(args + ["--directory", os.path.join(work, "b")])
+        drv.PreemptionGuard = real_guard
+        train_cli(args + ["--directory", os.path.join(work, "b"),
+                          "--resume", "latest"])
+        wall_b = time.perf_counter() - t0
+    finally:
+        drv.make_train_step, drv.PreemptionGuard = real_step, real_guard
+        torch.backends.cudnn.deterministic = det
+    if len(calls) != 2 * per_epoch:
+        raise AssertionError(f"7.2 made {len(calls)} train steps, want "
+                             f"{2 * per_epoch}")
+    steps = sorted((e.time_range.start, e.time_range.end) for e in
+                   prof.events() if e.name == "train_step")
+    kern = [(e.time_range.start, e.time_range.end) for e in prof.events()
+            if e.device_type == DeviceType.CUDA
+            and "Memcpy" not in e.name and "Memset" not in e.name]
+    busy = span = 0.0
+    for ep in range(2):  # from the first step's call to the last's, per epoch
+        lo, hi = steps[ep * per_epoch][0], steps[(ep + 1) * per_epoch - 1][0]
+        span += (hi - lo) / 1e3
+        busy += _union_ms([(max(s, lo), min(e, hi)) for s, e in kern
+                           if e > lo and s < hi])
+    host_s = sum(calls[(ep + 1) * per_epoch - 1] - calls[ep * per_epoch]
+                 for ep in range(2))
+    img_s = 2 * (per_epoch - 1) * B / host_s
+    hist = [json.loads(line) for line in open(os.path.join(
+        work, "a", "metrics.jsonl"))]
+    pa = torch.load(os.path.join(work, "a", "epoch_00002.pt"),
+                    weights_only=True)["model"]
+    pb = torch.load(os.path.join(work, "b", "epoch_00002.pt"),
+                    weights_only=True)["model"]
+    init = get_model("gem_r50", num_classes=TRAIN_CLASSES)
+    training_init(init, torch.Generator().manual_seed(11))  # cfg.seed
+    p0 = init.state_dict()
+    moved = {k: (pa[k].double() - p0[k].double()) for k in pa
+             if pa[k].is_floating_point()}
+    devs = _leaf_devs({k: pb[k].double() - p0[k].double() for k in moved},
+                      moved)
+    worst = max(devs, key=devs.get)
+    same = all(torch.equal(pa[k], pb[k]) for k in pa)
+    if devs[worst] > 1e-4:
+        raise AssertionError(f"7.2 resume: {worst} moved differently from "
+                             f"the straight run ({devs[worst]:.3e} of its "
+                             "largest change)")
+    print(f"train 7.2: cli.train.main, {TRAIN_CLASSES}-way head, {TRAIN_PX} "
+          f"px, batch {B}, 8 decode / augment threads, cuDNN deterministic: "
+          f"{img_s:.1f} img/s including the host pipeline (steps 1-{per_epoch}"
+          f" of each epoch, host clock, profiler on), device busy "
+          f"{100 * busy / span:.1f}% of that window (union of kernel "
+          f"intervals); straight run {wall_a:.1f} s, stop + resume "
+          f"{wall_b:.1f} s; resumed vs straight: every leaf's change from "
+          f"the init within {devs[worst]:.2e} of its largest change "
+          f"(bitwise equal: {same}); validation launches {launches} [{smi}]")
+    print(f"train 7.2 history (metrics.jsonl of the straight run): {hist}")
+    shutil.rmtree(work, ignore_errors=True)
+    return dict(launches=launches, img_s=img_s, busy=busy / span)
+
+
+def reference_protocol_map(feats: np.ndarray, labels: np.ndarray) -> dict:
+    """Leave-one-out mAP / P@k with the query kept IN its ranking at
+    relevance 0 (the rigorous harness's own protocol)."""
+    f = feats / np.linalg.norm(feats, axis=1, keepdims=True)
+    sim = f @ f.T
+    n = len(f)
+    aps, p_at = [], {k: [] for k in (1, 5, 10)}
+    for i in range(n):
+        rel = (labels == labels[i]).astype(np.float64)
+        rel[i] = 0.0
+        srel = rel[np.argsort(-sim[i])]
+        if srel.sum() > 0:
+            prec = np.cumsum(srel) / np.arange(1, n + 1)
+            aps.append(float((prec * srel).sum() / srel.sum()))
+        for k in p_at:
+            p_at[k].append(float(srel[:k].sum() / k))
+    return {"mAP": float(np.mean(aps)),
+            **{f"P@{k}": float(np.mean(v)) for k, v in p_at.items()}}
+
+
+def self_excluded_map(feats: np.ndarray, labels: np.ndarray) -> float:
+    """Revisited-protocol mAP, easy = the same class, junk = the query."""
+    from research_image_retrieval_tpu_torch.evaluation.revisited import (
+        evaluate_revisited,
+    )
+
+    f = feats / np.linalg.norm(feats, axis=1, keepdims=True)
+    ranks = np.argsort(-(f @ f.T).T, axis=0)
+    gnd = []
+    for i in range(len(f)):
+        same = np.flatnonzero(labels == labels[i])
+        gnd.append({"easy": same[same != i], "hard": np.array([], int),
+                    "junk": np.array([i])})
+    return evaluate_revisited(ranks, gnd, dataset="synthetic").map_easy / 100
+
+
+def phase_trained_kernels(torch, gh, rb, smi: str) -> dict:
+    """7.3: the rigorous synthetic task (benchmarks/
+    rigorous_synthetic_gem_r50.json's config) trained by ``train(cfg)``,
+    then its 500 test images through ``extract`` (both kernels) and
+    through the kernels' plain versions on the card; accuracy, both mAPs
+    and the int8 engine's agreement with the fp32 engine."""
+    from research_image_retrieval_tpu_torch.data import (
+        IMAGENET_MEAN,
+        IMAGENET_STD,
+        SyntheticRetrievalDataset,
+    )
+    from research_image_retrieval_tpu_torch.index import extract_vectors
+    from research_image_retrieval_tpu_torch.models import backbone as bb
+    from research_image_retrieval_tpu_torch.models import gem as gem_mod
+    from research_image_retrieval_tpu_torch.ops.topk_stream import (
+        int8_streaming_topk,
+        quantize_gallery_int8,
+        streaming_topk,
+    )
+    from research_image_retrieval_tpu_torch.train.driver import train
+    from research_image_retrieval_tpu_torch.train.loop import make_eval_step
+    from research_image_retrieval_tpu_torch.utils.config import TrainConfig
+
+    work = os.path.join(ROOT, "build", "chip_smoke_rigorous")
+    shutil.rmtree(work, ignore_errors=True)
+    cfg = TrainConfig(
+        model="gem_r50", model_overrides=dict(outputdim=512, s=16.0, m=0.05),
+        imsize=RIGOROUS_PX, batch_size=32, num_workers=8, final_lr=1e-5,
+        weight_decay=1e-4, warmup_epochs=1, num_epochs=RIGOROUS_EPOCHS,
+        optimizer="adamw",
+        base_lr=1e-3, synthetic_classes=50, synthetic_samples=30,
+        synthetic_val_samples=10, synthetic_uint8=True, directory=work,
+        print_freq=0, plot_freq=0, seed=11, save_freq=RIGOROUS_EPOCHS,
+        device="cuda")
+    t0 = time.perf_counter()
+    state, history = train(cfg)
+    train_s = time.perf_counter() - t0
+    model = state.model.eval()
+    norm = (IMAGENET_MEAN, IMAGENET_STD)
+    test = SyntheticRetrievalDataset(num_classes=50, samples_per_class=10,
+                                     image_size=RIGOROUS_PX, seed=cfg.seed + 2,
+                                     uint8=True, signature_seed=cfg.seed)
+    imgs, labels = test.as_arrays()
+    ev = make_eval_step(norm)
+    errs = [float(ev(state, imgs[i:i + 50], labels[i:i + 50])["top1_err"])
+            for i in range(0, len(imgs), 50)]
+    acc = 100.0 - float(np.mean(errs))
+    run = lambda: extract_vectors(lambda x, v: model.extract(x, v),
+                                  list(imgs), scales=(1.0,), bucket=128,
+                                  device_scales=True, input_norm=norm,
+                                  device="cuda")
+    gh.gem_whiten_l2.launches = 0
+    rb.fused_bottleneck.launches = 0
+    vecs = run()
+    launches = {"gem_head": gh.gem_whiten_l2.launches,
+                "bottleneck": rb.fused_bottleneck.launches}
+    kern = (bb.fused_bottleneck, gem_mod.gem_whiten_l2)
+    bb.fused_bottleneck = rb.fused_bottleneck_reference
+    gem_mod.gem_whiten_l2 = gh.gem_whiten_l2_reference
+    try:
+        plain = run()
+    finally:
+        bb.fused_bottleneck, gem_mod.gem_whiten_l2 = kern
+    err = check_close("7.3 kernel vs plain descriptors", torch.from_numpy(vecs),
+                      torch.from_numpy(plain), 0.0, 1e-4)
+    if vecs.shape != (500, 512) or not np.isfinite(vecs).all():
+        raise AssertionError(f"7.3 descriptors: {vecs.shape}")
+    ref = reference_protocol_map(vecs, labels)
+    self_ex = self_excluded_map(vecs, labels)
+    q8, s8 = quantize_gallery_int8(torch.from_numpy(vecs).to("cuda"))
+    _, i8 = int8_streaming_topk(torch.from_numpy(vecs).to("cuda"), q8, s8,
+                                k=2)
+    i8 = i8.cpu().numpy()
+    _, i32 = streaming_topk(vecs, vecs, k=2, device="cuda")
+    agree1 = float((i8[:, 0] == i32[:, 0]).mean())
+    agree2 = float((i8[:, 1] == i32[:, 1]).mean())
+    same_cls = float((labels[i8[:, 1]] == labels).mean())
+    print(f"train 7.3: rigorous synthetic task (50 classes, {RIGOROUS_PX} px,"
+          f" 30 train / 10 test per class, {RIGOROUS_EPOCHS} epochs, AdamW lr "
+          "1e-3, batch 32, outputdim "
+          f"512, s 16, m 0.05) via train(cfg) in {train_s:.1f} s; train loss "
+          f"by epoch {[round(v, 4) for v in history['train_loss']]}, val top-1 "
+          f"err {[round(v, 2) for v in history['val_top1_err']]} [{smi}]")
+    print(f"train 7.3: test top-1 accuracy {acc:.2f}% (JAX record "
+          f"{RIGOROUS['test_accuracy']}%); reference-protocol mAP "
+          f"{ref['mAP']:.4f} P@5 {ref['P@5']:.4f} P@10 {ref['P@10']:.4f} (JAX "
+          f"{RIGOROUS['reference_mAP']}); self-excluded Revisited mAP "
+          f"{self_ex:.4f} (JAX {RIGOROUS['self_excluded_mAP']}); kernel vs "
+          f"plain descriptors max|err| {err:.2e} (atol 1e-4); extraction "
+          f"launches {launches}; int8 engine vs fp32 engine: top-1 "
+          f"{100 * agree1:.1f}% equal, nearest other row {100 * agree2:.1f}% "
+          f"equal, int8's nearest other row in the query's class "
+          f"{100 * same_cls:.1f}%")
+    if acc < 90.0:
+        raise AssertionError(f"7.3 test accuracy {acc:.2f}% < 90% floor")
+    shutil.rmtree(work, ignore_errors=True)
+    return dict(launches=launches, acc=acc)
+
+
 def main() -> int:
     import torch
 
@@ -1153,6 +1628,22 @@ def main() -> int:
     t0 = time.perf_counter()
     serving = phase_serving(torch, gh, rb, gpu_model, res["mAP"])
     print(f"serving phase: {time.perf_counter() - t0:.1f} s")
+    del gpu_model
+    torch.cuda.empty_cache()
+
+    # -- 7: training on the card ------------------------------------------
+    t0 = time.perf_counter()
+    phase_train_step(torch, smi)
+    cli_run = phase_train_cli(torch, gh, rb, smi)
+    trained = phase_trained_kernels(torch, gh, rb, smi)
+    print(f"training phase: {time.perf_counter() - t0:.1f} s")
+    # 7.2's eval step pools without the head kernel (as the JAX eval step
+    # does); 7.3's extraction runs both kernels
+    if cli_run["launches"]["bottleneck"] == 0 or 0 in trained[
+            "launches"].values():
+        raise AssertionError(f"a kernel was not launched on the training "
+                             f"path: 7.2 validation {cli_run['launches']}, "
+                             f"7.3 extraction {trained['launches']}")
 
     src = "research_image_retrieval_tpu_torch/csrc/"
     replaces = {
@@ -1163,7 +1654,11 @@ def main() -> int:
                     replaces=replaces[name], launches=launches[name],
                     library_ms=None, **rows[name],
                     serving_launches={step: n[name]
-                                      for step, n in serving.items()})
+                                      for step, n in serving.items()},
+                    train_launches={
+                        "7.2 validation": cli_run["launches"][name],
+                        "7.3 trained-weights extraction":
+                            trained["launches"][name]})
                for name in ("gem_head", "bottleneck")]
     print(json.dumps({"kernels": kernels}))
     print(f"gpu: {smi}")

@@ -1,0 +1,102 @@
+"""Training CLI (port of ``research_image_retrieval_tpu/cli/train.py``:
+the same flags, plus ``--device``).
+
+    python -m research_image_retrieval_tpu_torch.cli.train --preset gem_r50 \
+        --data-root /data/train.rirrec [--device cpu]
+
+``--data-root`` names a ``.rirrec`` record file (``cli.pack``) or, with
+``--csv-path``, a GLDv2 image tree; without it the run trains on the
+deterministic synthetic classes.  ``--data-parallel`` / ``--model-parallel``
+> 1, ``--teacher`` and ``--dtype bfloat16`` raise (not ported yet).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+from research_image_retrieval_tpu_torch.utils.config import (
+    PRESETS,
+    TrainConfig,
+    get_preset,
+)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="retrieval training (PyTorch)")
+    p.add_argument("--preset", default="gem_r50", choices=sorted(PRESETS),
+                   help="model preset")
+    p.add_argument("--list-presets", action="store_true")
+    p.add_argument("--data-root", default="",
+                   help="a .rirrec record file, or the GLDv2 image root "
+                        "(with --csv-path)")
+    p.add_argument("--csv-path", default="", help="train_clean.csv path")
+    p.add_argument("--imsize", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--num-epochs", type=int, default=None)
+    p.add_argument("--base-lr", type=float, default=None)
+    p.add_argument("--final-lr", type=float, default=None)
+    p.add_argument("--warmup-epochs", type=int, default=None)
+    p.add_argument("--weight-decay", type=float, default=None)
+    p.add_argument("--update-every", type=int, default=None,
+                   help="gradient accumulation steps")
+    p.add_argument("--clip-max-norm", type=float, default=None)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--directory", default=None, help="checkpoint directory")
+    p.add_argument("--resume", default=None)
+    p.add_argument("--save-freq", type=int, default=None)
+    p.add_argument("--num-workers", type=int, default=None)
+    p.add_argument("--data-parallel", type=int, default=None,
+                   help="> 1 raises: multi-GPU is not ported yet")
+    p.add_argument("--model-parallel", type=int, default=None,
+                   help="> 1 raises: multi-GPU is not ported yet")
+    p.add_argument("--dtype", dest="compute_dtype", default=None,
+                   choices=("float32", "bfloat16"),
+                   help="backbone compute dtype; bfloat16 raises (not "
+                        "ported yet)")
+    p.add_argument("--host-norm", dest="raw_input", action="store_false",
+                   default=None,
+                   help="normalize inputs on the host (float32 batches) "
+                        "instead of shipping uint8 and normalizing on the "
+                        "device")
+    p.add_argument("--teacher", action="store_true", default=None,
+                   help="distillation teacher; raises (not ported yet)")
+    p.add_argument("--teacher-texts", default=None)
+    p.add_argument("--teacher-model", default=None)
+    p.add_argument("--teacher-allow-random", dest="teacher_allow_random",
+                   action="store_true", default=None)
+    p.add_argument("--max-steps-per-epoch", type=int, default=None,
+                   help="debug: cap steps per epoch")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a card) or cpu")
+    return p
+
+
+def config_from_args(args) -> TrainConfig:
+    overrides = {}
+    for field in dataclasses.fields(TrainConfig):
+        key = field.name.replace("_", "-")
+        val = getattr(args, field.name, None)
+        if val is not None and key not in ("model", "model-overrides"):
+            overrides[field.name] = val
+    overrides.pop("model", None)
+    overrides.pop("model_overrides", None)
+    return get_preset(args.preset, **overrides)
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    if args.list_presets:
+        for name in sorted(PRESETS):
+            print(name)
+        return 0
+    cfg = config_from_args(args)
+    print(">> config:", cfg)
+    from research_image_retrieval_tpu_torch.train.driver import train
+
+    train(cfg, max_steps_per_epoch=args.max_steps_per_epoch)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -23,66 +23,76 @@ import threading
 
 import numpy as np
 
-__all__ = ["decode_image", "decode_jpeg", "host_decode", "is_adobe_rgb",
-           "native_available"]
+__all__ = ["NativeLib", "decode_image", "decode_jpeg", "host_decode",
+           "is_adobe_rgb", "native_available"]
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-_SRC = os.path.join(_ROOT, "native", "rir_decoder.cc")
-_LIB = os.path.join(_ROOT, "build", "native", "librir_decoder.so")
 
 
-class _NativeDecoder:
-    """The auto-built decoder library: rebuilt when the source is newer,
-    written under a temporary name and renamed into place (no process
-    loads a partly written file), ``None`` after a failure."""
+class NativeLib:
+    """A shared C++ core under ``native/``, built with g++ into
+    ``build/native/`` at first use and loaded with ctypes: rebuilt when
+    the source is newer, written under a temporary name and renamed into
+    place (no process loads a partly written file), ``None`` after a
+    failure (probed once per process).  ``declare`` sets the argtypes
+    and restype of every symbol."""
 
-    def __init__(self):
+    def __init__(self, src: str, lib: str, declare, flags=()):
+        self.src = os.path.join(_ROOT, "native", src)
+        self.path = os.path.join(_ROOT, "build", "native", lib)
+        self._declare = declare
+        self._flags = list(flags)
         self._lock = threading.Lock()
         self._lib = None
         self._failed = False
 
     def _build(self) -> bool:
-        os.makedirs(os.path.dirname(_LIB), exist_ok=True)
-        tmp = f"{_LIB}.{os.getpid()}.tmp"
-        cmd = ["g++", "-O3", "-fPIC", "-shared", "-o", tmp, _SRC, "-ljpeg",
-               "-lpthread"]
+        os.makedirs(os.path.dirname(self.path), exist_ok=True)
+        tmp = f"{self.path}.{os.getpid()}.tmp"
+        cmd = ["g++", "-O3", "-fPIC", "-shared", "-o", tmp, self.src,
+               *self._flags]
         try:
             subprocess.run(cmd, check=True, capture_output=True, timeout=120)
         except (subprocess.CalledProcessError, FileNotFoundError,
                 subprocess.TimeoutExpired):
             return False
-        os.replace(tmp, _LIB)
+        os.replace(tmp, self.path)
         return True
 
     def load(self):
         with self._lock:
             if self._lib is not None or self._failed:
                 return self._lib
-            stale = not os.path.exists(_LIB) or (
-                os.path.getmtime(_SRC) > os.path.getmtime(_LIB))
+            stale = not os.path.exists(self.path) or (
+                os.path.getmtime(self.src) > os.path.getmtime(self.path))
             if stale and not self._build():
                 self._failed = True
                 return None
             try:
-                lib = ctypes.CDLL(_LIB)
+                lib = ctypes.CDLL(self.path)
             except OSError:
                 self._failed = True
                 return None
-            lib.rir_decode_jpeg.restype = ctypes.c_int
-            lib.rir_decode_jpeg.argtypes = [
-                ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
-                ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-                ctypes.POINTER(ctypes.c_int), ctypes.c_int]
-            lib.rir_jpeg_dims.restype = ctypes.c_int
-            lib.rir_jpeg_dims.argtypes = [
-                ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
-                ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+            self._declare(lib)
             self._lib = lib
             return lib
 
 
-_native = _NativeDecoder()
+def _declare(lib) -> None:
+    lib.rir_decode_jpeg.restype = ctypes.c_int
+    lib.rir_decode_jpeg.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+    lib.rir_jpeg_dims.restype = ctypes.c_int
+    lib.rir_jpeg_dims.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+
+
+_native = NativeLib("rir_decoder.cc", "librir_decoder.so", _declare,
+                    flags=("-ljpeg", "-lpthread"))
 
 
 def native_available() -> bool:

@@ -6,9 +6,11 @@ not ported yet).
 
 A dataset whose directory is missing falls back to the synthetic fixture
 and says so.  Checkpoints are ``.pt`` / ``.pth`` state dicts (the port's
-model, or a torchvision-layout ResNet for the backbone) or an ``.npz`` of
-flax variables flattened with ``/`` keys (``params/backbone/conv1/kernel``
-...); an orbax checkpoint directory cannot be read without orbax.
+model, or a torchvision-layout ResNet for the backbone), the port
+trainer's ``epoch_*.pt`` / ``best.pt`` (the state dict under ``"model"``),
+or an ``.npz`` of flax variables flattened with ``/`` keys
+(``params/backbone/conv1/kernel`` ...); an orbax checkpoint directory
+cannot be read without orbax.
 """
 
 from __future__ import annotations
@@ -79,6 +81,8 @@ def load_checkpoint(path: str) -> tuple[dict, bool]:
         sd = from_jax_variables(variables)
         return sd, "whiten.weight" not in sd
     sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd.get("model"), dict):  # a trainer checkpoint
+        sd = sd["model"]
     if "whiten.weight" in sd:
         return sd, False
     return {f"backbone.{k}": v

@@ -2,6 +2,8 @@
 
 from research_image_retrieval_tpu_torch.models.backbone import (
     RESNET_STAGE_DEPTHS,
+    BasicBlock,
+    BatchNorm,
     BottleneckBlock,
     ResNet,
     stage_extents,
@@ -10,6 +12,7 @@ from research_image_retrieval_tpu_torch.models.convert import (
     from_jax_variables,
     load_torchvision_resnet,
     seeded_init,
+    training_init,
 )
 from research_image_retrieval_tpu_torch.models.gem import GeMModel
 from research_image_retrieval_tpu_torch.models.registry import (
@@ -20,6 +23,8 @@ from research_image_retrieval_tpu_torch.models.registry import (
 )
 
 __all__ = [
+    "BasicBlock",
+    "BatchNorm",
     "BottleneckBlock",
     "GeMModel",
     "MODEL_REGISTRY",
@@ -32,4 +37,5 @@ __all__ = [
     "register_model",
     "seeded_init",
     "stage_extents",
+    "training_init",
 ]

@@ -1,4 +1,4 @@
-"""ResNet-50 backbone with per-image bucket masks
+"""ResNet-{18,34,50,101,152} backbones with per-image bucket masks
 (port of ``research_image_retrieval_tpu/models/backbone.py``).
 
 Public tensors are NHWC like the JAX package; inside, activations are
@@ -13,6 +13,11 @@ follows the JAX model exactly: the input is masked, the stem output is
 masked before the max pool (post-ReLU zeros never win it), each block
 re-zeros conv1's output before its 3x3, and extents ceil-halve after the
 stem conv, the pool and every stride-2 block.
+
+Training mode follows flax's BatchNorm, not torch's (``BatchNorm``
+below): batch statistics normalize with the biased variance, and the
+running variance averages that biased variance.  ``dilation_block5`` and
+``stride_on_conv1`` of the JAX ``ResNet`` are not ported.
 """
 
 from __future__ import annotations
@@ -32,9 +37,17 @@ from research_image_retrieval_tpu_torch.ops.resblock import (
 )
 from research_image_retrieval_tpu_torch.utils.device import fp32_precision
 
-__all__ = ["BottleneckBlock", "RESNET_STAGE_DEPTHS", "ResNet", "stage_extents"]
+__all__ = ["BasicBlock", "BatchNorm", "BottleneckBlock", "RESNET_STAGE_DEPTHS",
+           "ResNet", "stage_extents"]
 
-RESNET_STAGE_DEPTHS = {"resnet50": (3, 4, 6, 3)}
+RESNET_STAGE_DEPTHS = {
+    "resnet18": (2, 2, 2, 2),
+    "resnet34": (3, 4, 6, 3),
+    "resnet50": (3, 4, 6, 3),
+    "resnet101": (3, 4, 23, 3),
+    "resnet152": (3, 8, 36, 3),
+}
+_BASIC = {"resnet18", "resnet34"}
 
 
 def stage_extents(valid_hw: torch.Tensor, stage: int) -> torch.Tensor:
@@ -50,23 +63,87 @@ def _apply_mask(y: torch.Tensor, extents: torch.Tensor | None) -> torch.Tensor:
     return y * hw_mask(y.shape[2], y.shape[3], extents, dtype=y.dtype)[:, None]
 
 
+class _FlaxBatchNormTrain(torch.autograd.Function):
+    """flax's train-mode normalization of NCHW ``x``: ``mean = E[x]``,
+    ``var = max(E[x^2] - E[x]^2, 0)``, ``y = (x - mean) * (rsqrt(var +
+    eps) * scale) + bias``.  The backward is ATen's batch-norm backward
+    given that mean and 1/std, which is the gradient of the same function
+    (autodiff of the fast variance gives 2(x - mean)/n, as of the two-pass
+    one) and keeps only ``x`` for it, as cuDNN's batch norm does."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        dims = (0, 2, 3)
+        mean = x.mean(dims)
+        var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+        invstd = torch.rsqrt(var + eps)
+        shape = (1, -1, 1, 1)
+        y = (x - mean.view(shape)) * (invstd * weight).view(shape) \
+            + bias.view(shape)
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.eps = eps
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        x, weight, mean, invstd = ctx.saved_tensors
+        gx, gw, gb = torch.ops.aten.native_batch_norm_backward(
+            gy.contiguous(memory_format=_memory_format(x)), x, weight, None,
+            None, mean, invstd, True, ctx.eps, [True, True, True])
+        return gx, gw, gb, None
+
+
+def _memory_format(x: torch.Tensor):
+    return (torch.channels_last
+            if x.is_contiguous(memory_format=torch.channels_last)
+            and not x.is_contiguous() else torch.contiguous_format)
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """``BatchNorm2d`` with flax's training semantics (``nn.BatchNorm(
+    momentum=0.9, epsilon=1e-5)`` of the JAX backbone).
+
+    In training the output is normalized with the batch's biased
+    variance computed as flax computes it, ``E[x^2] - E[x]^2``
+    (``use_fast_variance``; at a small batch its rounding differs from a
+    two-pass variance by more than the parity bars), and the running
+    average takes ``0.9 * running + 0.1 * batch`` of the mean and of that
+    BIASED variance; torch's own module stores the unbiased one, n/(n-1)
+    larger.  Eval mode reads the running statistics as ``BatchNorm2d``
+    does.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        y, mean, var = _FlaxBatchNormTrain.apply(x, self.weight, self.bias,
+                                                 self.eps)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
 class BottleneckBlock(nn.Module):
     """torchvision v1.5 bottleneck (stride on the 3x3), projection skip."""
 
     def __init__(self, in_ch: int, width: int, out_ch: int, stride: int = 1):
         super().__init__()
+        self.stride = stride
         self.conv1 = nn.Conv2d(in_ch, width, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(width)
+        self.bn1 = BatchNorm(width)
         self.conv2 = nn.Conv2d(width, width, 3, stride=stride, padding=1,
                                bias=False)
-        self.bn2 = nn.BatchNorm2d(width)
+        self.bn2 = BatchNorm(width)
         self.conv3 = nn.Conv2d(width, out_ch, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(out_ch)
+        self.bn3 = BatchNorm(out_ch)
         self.downsample = None
         if in_ch != out_ch or stride != 1:
             self.downsample = nn.Sequential(
                 nn.Conv2d(in_ch, out_ch, 1, stride=stride, bias=False),
-                nn.BatchNorm2d(out_ch))
+                BatchNorm(out_ch))
         # stride-1 identity blocks run as the fused kernel in eval mode
         self.fusable = self.downsample is None
         self._folded = None
@@ -111,8 +188,37 @@ class BottleneckBlock(nn.Module):
         return F.relu(y + identity)
 
 
+class BasicBlock(nn.Module):
+    """torchvision basic block: 3x3 (stride) -> 3x3, projection skip.  It
+    has no fused kernel: every mode runs cuDNN."""
+
+    def __init__(self, in_ch: int, width: int, out_ch: int, stride: int = 1):
+        super().__init__()
+        self.stride = stride
+        self.conv1 = nn.Conv2d(in_ch, out_ch, 3, stride=stride, padding=1,
+                               bias=False)
+        self.bn1 = BatchNorm(out_ch)
+        self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1, bias=False)
+        self.bn2 = BatchNorm(out_ch)
+        self.downsample = None
+        if in_ch != out_ch or stride != 1:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(in_ch, out_ch, 1, stride=stride, bias=False),
+                BatchNorm(out_ch))
+
+    def forward(self, x: torch.Tensor, extents: torch.Tensor | None = None):
+        identity = x
+        y = F.relu(self.bn1(self.conv1(_apply_mask(x, extents))))
+        if extents is not None and self.stride == 2:
+            extents = ceil_half(extents)
+        y = self.bn2(self.conv2(_apply_mask(y, extents)))
+        if self.downsample is not None:
+            identity = self.downsample(x)
+        return F.relu(y + identity)
+
+
 class ResNet(nn.Module):
-    """ResNet-50 returning the layer4 (stage 5) map, NHWC in and out."""
+    """ResNet returning the layer4 (stage 5) map, NHWC in and out."""
 
     def __init__(self, name: str = "resnet50"):
         super().__init__()
@@ -121,15 +227,17 @@ class ResNet(nn.Module):
                              f"have {sorted(RESNET_STAGE_DEPTHS)}")
         self.name = name
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm(64)
+        block, expansion = ((BasicBlock, 1) if name in _BASIC
+                            else (BottleneckBlock, 4))
         in_ch = 64
         for i, (depth, w) in enumerate(zip(RESNET_STAGE_DEPTHS[name],
                                            (64, 128, 256, 512))):
             blocks = []
             for j in range(depth):
                 stride = 2 if (i > 0 and j == 0) else 1
-                blocks.append(BottleneckBlock(in_ch, w, 4 * w, stride))
-                in_ch = 4 * w
+                blocks.append(block(in_ch, w, expansion * w, stride))
+                in_ch = expansion * w
             self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
         self.outputdim = in_ch
         self.to(memory_format=torch.channels_last)
@@ -155,6 +263,6 @@ class ResNet(nn.Module):
         for i in range(4):
             for block in getattr(self, f"layer{i + 1}"):
                 y = block(y, extents=ext)
-                if ext is not None and block.conv2.stride[0] == 2:
+                if ext is not None and block.stride == 2:
                     ext = ceil_half(ext)
         return y.permute(0, 2, 3, 1)

@@ -13,6 +13,8 @@
   seeded ``torch.Generator``, at scales that keep a deep ResNet's
   activations finite and O(1), for runs that need random but
   reproducible weights.
+* ``training_init``: the JAX models' initializers, for training from
+  scratch: the same laws, drawn from a ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -23,7 +25,12 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-__all__ = ["from_jax_variables", "load_torchvision_resnet", "seeded_init"]
+__all__ = ["from_jax_variables", "load_torchvision_resnet", "seeded_init",
+           "training_init"]
+
+# std of a unit normal truncated to [-2, 2], by which flax's
+# ``lecun_normal`` (a truncated normal) divides its scale
+_TRUNC_STD = 0.87962566103423978
 
 
 def _t(a) -> torch.Tensor:
@@ -51,7 +58,7 @@ def _resnet_from_flax(params: dict, stats: dict, prefix: str) -> dict:
         stage, j = key[len("layer"):].split("_")
         dst = f"layer{stage}.{j}"
         bp, bs = params[key], stats[key]
-        for k in (1, 2, 3):
+        for k in (1, 2, 3) if "conv3" in bp else (1, 2):  # bottleneck, basic
             conv(f"{dst}.conv{k}", bp[f"conv{k}"])
             bn(f"{dst}.bn{k}", bp[f"bn{k}"], bs[f"bn{k}"])
         if "downsample_conv" in bp:
@@ -116,3 +123,28 @@ def seeded_init(module: nn.Module, seed: int) -> None:
             else:
                 v = 0.1 * v
             t.copy_(v)
+
+
+def training_init(module: nn.Module, generator: torch.Generator) -> None:
+    """Initialize as the JAX models do, drawing from ``generator`` in
+    module order: every conv and linear weight ``lecun_normal`` (flax's:
+    normal with std ``sqrt(1 / fan_in) / 0.8796``, truncated at two std),
+    biases 0; BN scale 1, bias 0, running mean 0, running variance 1; a
+    ``classifier_w`` xavier-uniform.  A learnable GeM ``gem_p`` keeps its
+    value.  torch's default conv init (kaiming-uniform, a = sqrt(5)) has a
+    third of this variance and is not used.
+    """
+    with torch.no_grad():
+        for mod in module.modules():
+            if isinstance(mod, (nn.Conv2d, nn.Linear)):
+                w = mod.weight
+                std = math.sqrt(1.0 / (w[0].numel())) / _TRUNC_STD
+                nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                      generator=generator)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, nn.BatchNorm2d):
+                mod.reset_parameters()
+        cls_w = getattr(module, "classifier_w", None)
+        if cls_w is not None:
+            nn.init.xavier_uniform_(cls_w, generator=generator)

@@ -1,12 +1,14 @@
-"""GeM global-descriptor model, extraction side
+"""GeM global-descriptor model
 (port of ``research_image_retrieval_tpu/models/gem.py``).
 
+train:   backbone -> GeM -> whiten (Linear) -> ArcFace(s, m) -> cross
+         entropy (``forward``; plain PyTorch and cuDNN under autograd, as
+         the JAX step is plain XLA under ``jax.value_and_grad``)
 extract: backbone -> GeM -> whiten (Linear) -> L2, with the whole head in
 the hand-written kernel of ``ops/gem_head.py`` on CUDA.  ``extract`` reads
 the whiten weight in fp32 (equal to the JAX ``extract`` at the golden
 bars); ``extract_fused`` reads it in bf16, as the Pallas kernel's default.
-The ArcFace classifier weight is kept as a parameter for checkpoints and
-the training slice; extraction does not use it.
+The ArcFace classifier weight is a parameter; extraction does not use it.
 """
 
 from __future__ import annotations
@@ -20,12 +22,17 @@ from research_image_retrieval_tpu_torch.models.backbone import (
 )
 from research_image_retrieval_tpu_torch.models.registry import register_model
 from research_image_retrieval_tpu_torch.ops.gem_head import gem_whiten_l2
+from research_image_retrieval_tpu_torch.ops.losses import (
+    arcface_logits,
+    cross_entropy,
+)
+from research_image_retrieval_tpu_torch.ops.pooling import gem_pool
 
 __all__ = ["GeMModel"]
 
 
 class GeMModel(nn.Module):
-    """ResNet-GeM with a whiten projection (extraction API)."""
+    """ResNet-GeM with a whiten projection and an ArcFace head."""
 
     def __init__(self, backbone_name: str = "resnet50", outputdim: int = 2048,
                  num_classes: int = 81313, p: float = 3.0,
@@ -38,6 +45,23 @@ class GeMModel(nn.Module):
         self.s, self.m = s, m
         self.classifier_w = nn.Parameter(torch.empty(num_classes, outputdim))
         nn.init.xavier_uniform_(self.classifier_w)
+
+    def forward(self, x: torch.Tensor, labels: torch.Tensor,
+                train: bool | None = None):
+        """Train forward ``(loss, logits)`` of [B, H, W, 3] normalized
+        images.  ``train`` (default: the module's mode, which it must
+        match) adds the angular margin; eval logits are the scaled cosine
+        (m = 0), so argmax accuracy is not penalized on the target."""
+        train = self.training if train is None else train
+        if train != self.training:
+            raise ValueError(f"train={train} with the module in "
+                             f"{'train' if self.training else 'eval'} "
+                             "mode: call .train() or .eval() first")
+        fmap = self.backbone(x)
+        pooled = gem_pool(fmap, p=self.p if self.gem_p is None else self.gem_p)
+        logits = arcface_logits(self.whiten(pooled), self.classifier_w,
+                                labels, s=self.s, m=self.m if train else 0.0)
+        return cross_entropy(logits, labels), logits
 
     def _head(self, x, valid_hw, weight_dtype):
         if self.training:

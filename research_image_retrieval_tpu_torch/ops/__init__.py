@@ -4,6 +4,11 @@ from research_image_retrieval_tpu_torch.ops.gem_head import (
     gem_whiten_l2,
     gem_whiten_l2_reference,
 )
+from research_image_retrieval_tpu_torch.ops.losses import (
+    arcface_logits,
+    cross_entropy,
+    topk_errors,
+)
 from research_image_retrieval_tpu_torch.ops.masking import (
     ceil_half,
     downsample_extents,
@@ -35,7 +40,9 @@ from research_image_retrieval_tpu_torch.ops.whiten import (
 __all__ = [
     "apply_whitening",
     "approx_streaming_topk",
+    "arcface_logits",
     "ceil_half",
+    "cross_entropy",
     "dense_resize_weights",
     "downsample_extents",
     "fold_bn",
@@ -52,4 +59,5 @@ __all__ = [
     "quantize_gallery_int8",
     "scan_streaming_topk",
     "streaming_topk",
+    "topk_errors",
 ]

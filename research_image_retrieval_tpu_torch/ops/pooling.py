@@ -25,10 +25,12 @@ def _masked_spatial_mean(x: torch.Tensor, valid_hw=None) -> torch.Tensor:
 
 def gem_pool(x: torch.Tensor, p=3.0, eps: float = 1e-6,
              valid_hw: torch.Tensor | None = None) -> torch.Tensor:
-    """Generalized-mean pooling of ``[B, H, W, C]`` -> ``[B, C]`` fp32.
+    """Generalized-mean pooling of ``[B, H, W, C]`` -> ``[B, C]`` fp32
+    (float64 input stays float64).
 
     ``p`` is a float or a learnable ``[1]`` tensor.
     """
-    xp = torch.clamp(x.to(torch.float32), min=eps) ** p
+    xp = torch.clamp(x.to(torch.promote_types(x.dtype, torch.float32)),
+                     min=eps) ** p
     pooled = _masked_spatial_mean(xp, valid_hw)
     return pooled ** (1.0 / p)

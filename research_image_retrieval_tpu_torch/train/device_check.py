@@ -1,0 +1,145 @@
+"""The train step on the card against the same step on the CPU.
+
+One SGD step of GeM-R50 with ``TrainConfig``'s hyperparameters (lr 0.01,
+nesterov momentum 0.9, weight decay 1e-4, clip 1.0) at a reduced size
+(batch 2, 128 px, ResNet-50, 512 classes), from one state and batch on
+both devices:
+
+* in float64, where the comparison is well conditioned: on the CPU, one
+  ulp of the input moves a gradient leaf by ~4e-13 of its largest
+  magnitude and the loss by ~3e-15 (in float32 the same ulp moves the
+  whole gradient by ~1.6%, because train-mode BN at init amplifies
+  rounding).  Every leaf is held to a fixed bar (``BARS``): the loss and
+  grad_norm, relative; each gradient leaf, relative to its largest
+  magnitude; what the step moved in each parameter, relative to its
+  largest change; the running statistics, relative to each leaf's
+  largest magnitude.
+* in float32 on the card with TF32 switched on for cuDNN and cuBLAS
+  around the call, to show that the step turns it off for the forward,
+  ``backward()`` and the optimizer (a hook on the stem's output, whose
+  gradient autograd computes last, records the flags) and restores the
+  caller's flags afterwards.  TF32 does not apply to float64, so only
+  this run can show it.
+
+Run it with ``check_cuda_train_step()``; it raises on a miss.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from research_image_retrieval_tpu_torch.data import IMAGENET_MEAN, IMAGENET_STD
+from research_image_retrieval_tpu_torch.models import get_model
+from research_image_retrieval_tpu_torch.train.loop import (
+    create_train_state,
+    make_train_step,
+)
+from research_image_retrieval_tpu_torch.train.optimizer import (
+    make_sgd_optimizer,
+)
+from research_image_retrieval_tpu_torch.utils.config import TrainConfig
+
+__all__ = ["BARS", "SHAPE", "check_cuda_train_step"]
+
+SHAPE = dict(batch=2, px=128, classes=512, seed=0)
+BARS = {
+    "loss": 1e-10,
+    "grad_norm": 1e-10,
+    "gradient leaves": 1e-8,
+    "parameter changes": 1e-6,
+    "running statistics": 1e-9,
+}
+
+
+def _step(device: str, dtype: torch.dtype, x: np.ndarray, y: np.ndarray,
+          on_stem_grad=None) -> dict:
+    cfg = TrainConfig()
+    model = get_model("gem_r50", num_classes=SHAPE["classes"]).to(dtype)
+    state = create_train_state(
+        model, SHAPE["seed"],
+        make_sgd_optimizer(cfg.base_lr, momentum=cfg.momentum,
+                           weight_decay=cfg.weight_decay,
+                           clip_max_norm=cfg.clip_max_norm), device=device)
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    def on_stem(mod, inputs, out):
+        out.register_hook(on_stem_grad)
+
+    hook = None
+    if on_stem_grad is not None:
+        hook = model.backbone.bn1.register_forward_hook(on_stem)
+    state, m = make_train_step(None)(state, torch.from_numpy(x).to(dtype), y)
+    if hook is not None:
+        hook.remove()
+
+    def cpu(t):
+        return t.detach().to("cpu", torch.float64)
+
+    return dict(
+        loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+        grads={n: cpu(p.grad) for n, p in model.named_parameters()},
+        changes={n: cpu(p) - cpu(init[n]) for n, p in model.named_parameters()},
+        stats={k: cpu(v) for k, v in model.state_dict().items()
+               if "running" in k})
+
+
+def _worst_leaf(got: dict, want: dict) -> tuple[float, str]:
+    """The largest ``max |got - want| / max |want|`` over the leaves."""
+    devs = {k: float((got[k] - want[k]).abs().max()
+                     / want[k].abs().max().clamp(min=1e-300)) for k in want}
+    worst = max(devs, key=devs.get)
+    return devs[worst], worst
+
+
+def check_cuda_train_step() -> dict:
+    """``{check: (deviation, bar, worst leaf or "")}`` of the float64
+    CUDA step against the CPU's, after the float32 TF32 check; raises
+    ``AssertionError`` on any miss."""
+    rng = np.random.default_rng(SHAPE["seed"])
+    B, px = SHAPE["batch"], SHAPE["px"]
+    x = (rng.integers(0, 256, (B, px, px, 3)) / 255.0
+         - IMAGENET_MEAN) / IMAGENET_STD
+    y = rng.integers(0, SHAPE["classes"], B)
+
+    flags = []
+
+    def record(grad):
+        flags.append((torch.backends.cudnn.allow_tf32,
+                      torch.backends.cuda.matmul.allow_tf32))
+
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        fp32 = _step("cuda", torch.float32, x.astype(np.float32), y, record)
+        after = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    if not flags or any(any(f) for f in flags) or after != (True, True):
+        raise AssertionError(f"TF32 flags during the backward {flags}, after "
+                             f"the step {after} (want off, then restored)")
+    bad = [n for n, g in fp32["grads"].items() if not bool(g.isfinite().all())]
+    if not np.isfinite(fp32["loss"]) or bad:
+        raise AssertionError(f"float32 step: loss {fp32['loss']}, non-finite "
+                             f"gradients in {bad[:5]}")
+
+    want = _step("cpu", torch.float64, x, y)
+    got = _step("cuda", torch.float64, x, y)
+    rel = lambda a, b: (abs(a - b) / abs(b), "")  # noqa: E731
+    devs = {
+        "loss": rel(got["loss"], want["loss"]),
+        "grad_norm": rel(got["grad_norm"], want["grad_norm"]),
+        "gradient leaves": _worst_leaf(got["grads"], want["grads"]),
+        "parameter changes": _worst_leaf(got["changes"], want["changes"]),
+        "running statistics": _worst_leaf(got["stats"], want["stats"]),
+    }
+    out = {k: (d, BARS[k], leaf) for k, (d, leaf) in devs.items()}
+    miss = {k: v for k, v in out.items() if not v[0] <= v[1]}
+    if miss:
+        raise AssertionError(f"float64 train step, cuda vs cpu (deviation, "
+                             f"bar, worst leaf): {miss}")
+    return out

@@ -1,0 +1,348 @@
+"""End-to-end training driver (port of
+``research_image_retrieval_tpu/train/driver.py``).
+
+Registry model, the per-family optimizer (with the AdamW -> SGD hand-off
+of ``adamw_then_sgd`` at ``switch_epoch``), warmup-cosine per-update
+learning rate, gradient accumulation and clipping, per-epoch validation
+with top-1/5 errors, rolling checkpoints with best tracking, JSONL
+metrics, the preemption guard, and exact resume (model, optimizer, step
+generator and data-iterator state, mid-epoch included).  Data: a packed
+``.rirrec`` record file, the GLDv2 CSV layout, or the synthetic
+procedural classes.
+
+One device (``cfg.device``, default CUDA: raises without a card).  What
+the JAX driver has and this one does not raise instead of running
+something else: ``data_parallel`` / ``model_parallel`` > 1 (multi-GPU is
+ROADMAP Queue 1 item 9), ``teacher=True`` (item 12) and
+``compute_dtype="bfloat16"`` (a bf16 autocast matching the JAX bf16
+backbone; item 8).  Curves are not drawn (``plot_freq``): the driver
+says so once.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import numpy as np
+
+from research_image_retrieval_tpu_torch.data import (
+    EvalTransform,
+    ShardedBatchIterator,
+    SyntheticRetrievalDataset,
+    TrainTransform,
+    build_gldv2_train_val,
+)
+from research_image_retrieval_tpu_torch.data.transforms import (
+    IMAGENET_MEAN,
+    IMAGENET_STD,
+)
+from research_image_retrieval_tpu_torch.models import get_model
+from research_image_retrieval_tpu_torch.train.checkpoint import (
+    CheckpointManager,
+)
+from research_image_retrieval_tpu_torch.train.loop import (
+    create_train_state,
+    make_eval_step,
+    make_train_step,
+)
+from research_image_retrieval_tpu_torch.train.metrics import (
+    DeferredUpdate,
+    JsonlWriter,
+    MetricLogger,
+    TensorBoardWriter,
+)
+from research_image_retrieval_tpu_torch.train.optimizer import (
+    make_adamw_optimizer,
+    make_sgd_optimizer,
+)
+from research_image_retrieval_tpu_torch.train.preemption import (
+    PreemptionGuard,
+)
+from research_image_retrieval_tpu_torch.train.schedule import (
+    warmup_cosine_schedule,
+)
+from research_image_retrieval_tpu_torch.utils.config import TrainConfig
+from research_image_retrieval_tpu_torch.utils.device import resolve_device
+
+__all__ = ["build_datasets", "build_optimizer", "check_config", "train"]
+
+
+def check_config(cfg: TrainConfig) -> None:
+    """Raise on what the port cannot run as asked (never a quiet
+    substitute)."""
+    if (cfg.data_parallel or 1) > 1 or (cfg.model_parallel or 1) > 1:
+        raise NotImplementedError(
+            f"data_parallel={cfg.data_parallel}, model_parallel="
+            f"{cfg.model_parallel}: the port trains on one device; "
+            "multi-GPU training is ROADMAP Queue 1 item 9")
+    if cfg.teacher:
+        raise NotImplementedError(
+            "teacher=True: the distillation teacher belongs to the sparse / "
+            "hamlet models, not ported yet (ROADMAP Queue 1 item 12)")
+    if cfg.compute_dtype not in ("", "float32"):
+        raise NotImplementedError(
+            f"compute_dtype={cfg.compute_dtype!r}: the port trains in fp32; "
+            "a bf16 autocast matching the JAX bf16 backbone is ROADMAP "
+            "Queue 1 item 8's open part")
+
+
+def build_datasets(cfg: TrainConfig):
+    """(train, val, num_classes): a ``.rirrec`` record file with a seeded
+    per-class val split, the GLDv2 CSV layout, or the synthetic classes
+    (val shares the class signatures, ``signature_seed``)."""
+    raw = bool(cfg.raw_input)
+    if cfg.data_root and cfg.data_root.endswith(".rirrec"):
+        from research_image_retrieval_tpu_torch.data import (
+            RecordDataset,
+            RecordReader,
+        )
+
+        labels = RecordReader(cfg.data_root).labels()
+        n_cls = int(labels.max()) + 1
+        rng = np.random.default_rng(cfg.seed)
+        val_idx = []
+        for c in range(n_cls):
+            members = np.flatnonzero(labels == c)
+            take = min(cfg.val_per_class, max(len(members) - 1, 0))
+            if take:
+                val_idx.extend(rng.choice(members, take, replace=False))
+        val_mask = np.zeros(len(labels), bool)
+        val_mask[np.asarray(val_idx, int)] = True
+        train = RecordDataset(
+            cfg.data_root, indices=np.flatnonzero(~val_mask),
+            transform=TrainTransform(cfg.imsize, seed=cfg.seed,
+                                     raw_uint8=raw))
+        val = RecordDataset(
+            cfg.data_root, indices=np.flatnonzero(val_mask),
+            transform=EvalTransform(cfg.imsize, raw_uint8=raw))
+        return train, val, n_cls
+    if cfg.data_root and cfg.csv_path:
+        return build_gldv2_train_val(
+            cfg.data_root, cfg.csv_path, val_per_class=cfg.val_per_class,
+            seed=cfg.seed,
+            train_transform=TrainTransform(cfg.imsize, seed=cfg.seed,
+                                           raw_uint8=raw),
+            val_transform=EvalTransform(cfg.imsize, raw_uint8=raw))
+    n_cls = cfg.synthetic_classes
+    u8 = bool(cfg.synthetic_uint8)
+    train = SyntheticRetrievalDataset(
+        num_classes=n_cls, samples_per_class=cfg.synthetic_samples,
+        image_size=cfg.imsize, seed=cfg.seed, uint8=u8)
+    val = SyntheticRetrievalDataset(
+        num_classes=n_cls, samples_per_class=cfg.synthetic_val_samples,
+        image_size=cfg.imsize, seed=cfg.seed + 1, uint8=u8,
+        signature_seed=cfg.seed)
+    return train, val, n_cls
+
+
+def build_optimizer(cfg: TrainConfig, iter_per_epoch: int,
+                    phase: str = "main"):
+    """The ``Transform`` of a training phase: ``adamw_then_sgd`` runs
+    AdamW at a constant ``base_lr`` until ``switch_epoch`` ("warm"),
+    then SGD on a cosine schedule ("main")."""
+    if cfg.optimizer == "adamw_then_sgd":
+        if phase == "warm":
+            return make_adamw_optimizer(
+                cfg.base_lr, weight_decay=cfg.weight_decay,
+                clip_max_norm=cfg.clip_max_norm,
+                update_every=cfg.update_every)
+        sched = warmup_cosine_schedule(
+            0, cfg.base_lr, cfg.num_epochs - cfg.switch_epoch, 1e-2,
+            cfg.final_lr, iter_per_epoch)
+        return make_sgd_optimizer(
+            sched, momentum=cfg.momentum, weight_decay=cfg.weight_decay,
+            clip_max_norm=cfg.clip_max_norm, update_every=cfg.update_every)
+    sched = warmup_cosine_schedule(
+        cfg.warmup_epochs,
+        cfg.warmup_lr * cfg.update_every,
+        cfg.num_epochs,
+        cfg.base_lr * cfg.update_every,
+        cfg.final_lr * cfg.update_every,
+        max(iter_per_epoch // cfg.update_every, 1))
+    if cfg.optimizer == "adamw":
+        return make_adamw_optimizer(
+            sched, weight_decay=cfg.weight_decay,
+            clip_max_norm=cfg.clip_max_norm, update_every=cfg.update_every)
+    return make_sgd_optimizer(
+        sched, momentum=cfg.momentum, weight_decay=cfg.weight_decay,
+        clip_max_norm=cfg.clip_max_norm, update_every=cfg.update_every)
+
+
+def _resume_target(cfg: TrainConfig, mgr: CheckpointManager):
+    """(manager, epoch) of the checkpoint ``cfg.resume`` names."""
+    if isinstance(cfg.resume, str) and cfg.resume not in ("latest", "true"):
+        base = os.path.basename(os.path.normpath(cfg.resume))
+        stem = os.path.splitext(base)[0]
+        if not stem.startswith("epoch_"):
+            raise ValueError(f"--resume expects 'latest' or a "
+                             f".../epoch_NNNNN.pt path, got {cfg.resume!r}")
+        return (CheckpointManager(os.path.dirname(os.path.abspath(cfg.resume)),
+                                  keep_every=cfg.keep_every),
+                int(stem.split("_")[1]))
+    epoch = mgr.latest_epoch()
+    if epoch is None:
+        raise FileNotFoundError(f"no checkpoints in {cfg.directory}")
+    return mgr, epoch
+
+
+def train(cfg: TrainConfig, max_steps_per_epoch: int | None = None):
+    """Run the training loop on ``cfg.device``; returns (state, history).
+    ``history["preempted"]`` is True when the guard stopped the run
+    after a checkpoint."""
+    check_config(cfg)
+    device = resolve_device(cfg.device)
+    train_ds, val_ds, num_classes = build_datasets(cfg)
+
+    def new_model():
+        return get_model(cfg.model, num_classes=num_classes,
+                         **cfg.model_overrides)
+
+    train_it = ShardedBatchIterator(train_ds, cfg.batch_size, seed=cfg.seed,
+                                    num_workers=cfg.num_workers)
+    val_it = ShardedBatchIterator(val_ds, cfg.batch_size, seed=cfg.seed,
+                                  shuffle=False, num_workers=cfg.num_workers)
+    ipe = train_it.steps_per_epoch()
+    if max_steps_per_epoch:
+        ipe = min(ipe, max_steps_per_epoch)
+
+    os.makedirs(cfg.directory, exist_ok=True)
+    mgr = CheckpointManager(cfg.directory, keep_every=cfg.keep_every)
+    jsonl = JsonlWriter(os.path.join(cfg.directory, "metrics.jsonl"))
+    tb = (TensorBoardWriter(os.path.join(cfg.directory, "tb"))
+          if cfg.tensorboard else None)
+
+    def write_metrics(step: int, **metrics):
+        jsonl.write(step, **metrics)
+        if tb is not None:
+            tb.write(step, **metrics)
+
+    def close_writers():
+        jsonl.close()
+        if tb is not None:
+            tb.close()
+
+    # uint8 items: ship uint8 and normalize on the device in the steps
+    input_norm = None
+    if np.asarray(train_ds[0][0]).dtype == np.uint8:
+        input_norm = (IMAGENET_MEAN, IMAGENET_STD)
+        print(">> raw uint8 input: normalization runs in the train step on "
+              "the device")
+
+    def phase_for(epoch: int) -> str:
+        if cfg.optimizer != "adamw_then_sgd":
+            return "main"
+        return "warm" if epoch < cfg.switch_epoch else "main"
+
+    def snapshot():
+        """Model, optimizer, step and generator state, the data iterator's
+        state and the loop epoch to resume at (mid-epoch included)."""
+        return {**state.state_dict(), "it": train_it.state_dict(),
+                "loop_epoch": train_it.epoch, "phase": phase}
+
+    start_epoch = 0
+    if not cfg.resume:
+        phase = phase_for(0)
+        state = create_train_state(new_model(), cfg.seed,
+                                   build_optimizer(cfg, ipe, phase), device)
+    else:
+        resume_mgr, resume_epoch = _resume_target(cfg, mgr)
+        payload, ep = resume_mgr.restore(epoch=resume_epoch)
+        # the optimizer state's structure depends on the phase it was
+        # saved under (warm vs main around the hand-off): try each
+        # phase's optimizer, as the JAX driver tries each template
+        phases = (("warm", "main") if cfg.optimizer == "adamw_then_sgd"
+                  else ("main",))
+        state, last_err = None, None
+        for ph in phases:
+            try_state = create_train_state(
+                new_model(), cfg.seed, build_optimizer(cfg, ipe, ph), device)
+            try:
+                try_state.load_state_dict(payload)
+            except (ValueError, KeyError, RuntimeError) as e:
+                last_err = e  # another phase's optimizer state
+                continue
+            state, phase = try_state, ph
+            break
+        if state is None:
+            raise last_err
+        train_it.load_state_dict(payload["it"])
+        start_epoch = int(payload["loop_epoch"])
+        print(f">> resumed from checkpoint {ep} (optimizer phase '{phase}') "
+              f"at loop epoch {start_epoch}, data step {train_it.step}")
+
+    train_step = make_train_step(input_norm)
+    eval_step = make_eval_step(input_norm)
+
+    history = {"train_loss": [], "val_loss": [], "val_top1_err": [],
+               "preempted": False}
+    switched = phase == "main"
+    guard = PreemptionGuard()  # SIGTERM -> checkpoint and exit cleanly
+
+    for epoch in range(start_epoch, cfg.num_epochs):
+        if (cfg.optimizer == "adamw_then_sgd" and not switched
+                and epoch >= cfg.switch_epoch):
+            phase = "main"
+            state.optimizer = build_optimizer(cfg, ipe, phase).init(
+                state.model)
+            state.step = 0
+            switched = True
+            print(f">> optimizer hand-off to SGD at epoch {epoch}")
+
+        logger = MetricLogger()
+        # read each step's device scalars one step late, so the host
+        # prepares batch N+1 while the card runs step N
+        dlog = DeferredUpdate(logger)
+        header = f">> Train Epoch: [{epoch}]"
+        for i, (imgs, labels) in enumerate(
+                logger.log_every(train_it.epoch_batches(), cfg.print_freq,
+                                 header)):
+            state, m = train_step(state, imgs, labels)
+            dlog.update(loss=m["loss"], top1_err=m["top1_err"],
+                        top5_err=m["top5_err"])
+            if guard.should_stop:
+                mgr.save(epoch + 1, snapshot())
+                print(f">> preemption checkpoint at epoch {epoch}, step "
+                      f"{state.step} (data step {train_it.step}); exiting")
+                guard.restore()
+                close_writers()
+                history["preempted"] = True
+                return state, history
+            if max_steps_per_epoch and i + 1 >= max_steps_per_epoch:
+                train_it.epoch += 1
+                train_it.step = 0
+                break
+        dlog.flush()
+        history["train_loss"].append(logger.meters["loss"].avg)
+        write_metrics(state.step, epoch=epoch,
+                      train_loss=logger.meters["loss"].avg)
+
+        val_metric = None
+        if (epoch + 1) % cfg.val_epoch == 0:
+            vlog = MetricLogger()
+            dvlog = DeferredUpdate(vlog)
+            for j, (imgs, labels) in enumerate(val_it.epoch_batches()):
+                m = eval_step(state, imgs, labels)
+                dvlog.update(loss=m["loss"], top1_err=m["top1_err"])
+                if max_steps_per_epoch and j + 1 >= max_steps_per_epoch:
+                    val_it.epoch += 1
+                    val_it.step = 0
+                    break
+            dvlog.flush()
+            history["val_loss"].append(vlog.meters["loss"].avg)
+            history["val_top1_err"].append(vlog.meters["top1_err"].avg)
+            print(f">> Val Epoch: [{epoch}] {vlog}")
+            val_metric = vlog.meters["top1_err"].avg
+
+        if (epoch + 1) % cfg.save_freq == 0:
+            mgr.save(epoch + 1, snapshot(), metric=val_metric)
+
+        if cfg.plot_freq and (epoch + 1) % cfg.plot_freq == 0:
+            print(">> curve plotting unavailable: the port draws no curves "
+                  "(matplotlib is not a dependency); the history is in "
+                  "metrics.jsonl")
+            cfg = dataclasses.replace(cfg, plot_freq=0)
+
+    guard.restore()
+    close_writers()
+    return state, history

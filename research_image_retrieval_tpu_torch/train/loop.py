@@ -1,0 +1,124 @@
+"""Train and eval steps (port of ``research_image_retrieval_tpu/train/loop.py``).
+
+The JAX step is one jitted program under ``jax.value_and_grad``; here the
+forward, ``backward()`` and the optimizer run eagerly on cuDNN, cuBLAS
+and autograd, all inside one ``fp32_precision()`` block: autograd runs
+the backward convolutions after the forward's own block has closed, and
+cuDNN's TF32 default would be back on there.  One device, no mesh: the
+JAX ``mesh``, ``donate`` and ``teacher_table`` arguments are not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn as nn
+
+from research_image_retrieval_tpu_torch.models.convert import training_init
+from research_image_retrieval_tpu_torch.ops.losses import topk_errors
+from research_image_retrieval_tpu_torch.ops.norm import fused_input_norm
+from research_image_retrieval_tpu_torch.train.optimizer import (
+    Optimizer,
+    Transform,
+)
+from research_image_retrieval_tpu_torch.utils.device import fp32_precision
+
+__all__ = ["TrainState", "create_train_state", "make_eval_step",
+           "make_train_step"]
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Everything a resumable train step needs: the model (parameters and
+    BN statistics), the optimizer state, the step count and the step's
+    random generator (split once per step, as the JAX step splits its
+    key, so a resume continues the same stream)."""
+
+    step: int
+    model: nn.Module
+    optimizer: Optimizer
+    rng: torch.Generator
+
+    def state_dict(self) -> dict:
+        return {"step": self.step,
+                "model": {k: v.detach().cpu()
+                          for k, v in self.model.state_dict().items()},
+                "optimizer": self.optimizer.state_dict(),
+                "rng": self.rng.get_state()}
+
+    def load_state_dict(self, state: dict):
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
+        self.rng.set_state(state["rng"])
+
+
+def create_train_state(model: nn.Module, seed: int, tx: Transform,
+                       device="cuda") -> TrainState:
+    """Initialize ``model`` as the JAX models are initialized
+    (``training_init``, from a generator seeded with ``seed``), move it to
+    ``device`` and bind ``tx`` to its parameters.  Other weights (a
+    checkpoint, converted JAX variables) load into ``state.model``
+    afterwards; the optimizer holds the same tensors."""
+    gen = torch.Generator().manual_seed(seed)
+    training_init(model, gen)
+    model.to(device)
+    rng = torch.Generator().manual_seed(int(torch.randint(
+        2 ** 62, (1,), generator=gen)))
+    return TrainState(step=0, model=model, optimizer=tx.init(model), rng=rng)
+
+
+def _to_device(images, labels, device):
+    """numpy batches or tensors (on any device) -> tensors on ``device``."""
+    x = torch.as_tensor(images).to(device, non_blocking=True)
+    y = torch.as_tensor(labels).to(device, torch.int64, non_blocking=True)
+    return x, y
+
+
+def make_train_step(input_norm=None):
+    """``step(state, images, labels) -> (state, metrics)``: uint8 (or
+    normalized float) NHWC batches in, normalized on the device with
+    ``input_norm=(mean, std)``; one forward, backward and optimizer step
+    in fp32 (TF32 off throughout).  ``metrics`` are device scalars:
+    ``loss``, ``top1_err``, ``top5_err`` and ``grad_norm`` (raw gradients,
+    before clipping).  The state is updated in place and returned."""
+    prep = fused_input_norm(input_norm)
+
+    def step_fn(state: TrainState, images, labels):
+        model, opt = state.model, state.optimizer
+        dev = next(model.parameters()).device
+        x, y = _to_device(images, labels, dev)
+        # the JAX step splits its key every step; a dropout model would
+        # take its seed from this draw
+        torch.randint(2 ** 62, (1,), generator=state.rng)
+        model.train()
+        with fp32_precision():
+            opt.zero_grad()
+            loss, logits = model(prep(x), y, train=True)
+            loss.backward()
+            grad_norm = opt.step()
+        e1, e5 = topk_errors(logits.detach(), y, ks=(1, 5))
+        state.step += 1
+        return state, {"loss": loss.detach(), "top1_err": e1,
+                       "top5_err": e5, "grad_norm": grad_norm}
+
+    return step_fn
+
+
+def make_eval_step(input_norm=None):
+    """``step(state, images, labels) -> metrics`` in eval mode (BN
+    running statistics, no margin, the fused bottleneck kernel in the
+    identity blocks): ``loss``, ``top1_err``, ``top5_err``."""
+    prep = fused_input_norm(input_norm)
+
+    def step_fn(state: TrainState, images, labels):
+        model = state.model
+        x, y = _to_device(images, labels, next(model.parameters()).device)
+        model.eval()
+        with torch.no_grad(), fp32_precision():
+            loss, logits = model(prep(x), y, train=False)
+        e1, e5 = topk_errors(logits, y, ks=(1, 5))
+        return {"loss": loss, "top1_err": e1, "top5_err": e5}
+
+    return step_fn

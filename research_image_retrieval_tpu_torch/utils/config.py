@@ -1,12 +1,91 @@
-"""Evaluation settings (port of ``EvalConfig`` of
-``research_image_retrieval_tpu/utils/config.py``, with the fields that the
-ported driver and ``cli.evaluate`` read; the same names and defaults)."""
+"""Training and evaluation settings (port of
+``research_image_retrieval_tpu/utils/config.py``): ``TrainConfig`` with
+the JAX fields and defaults plus ``device``, the presets of the families
+the port has (``gem_r50``), and ``EvalConfig`` with the fields that the
+ported evaluation driver and ``cli.evaluate`` read.
+"""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
-__all__ = ["EvalConfig"]
+__all__ = ["EvalConfig", "PRESETS", "TrainConfig", "get_preset"]
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """Training hyperparameters: the JAX ``TrainConfig``'s fields and
+    defaults, plus ``device``."""
+
+    model: str = "gem_r50"
+    model_overrides: dict = dataclasses.field(default_factory=dict)
+
+    # data
+    data_root: str = ""
+    csv_path: str = ""
+    imsize: int = 512
+    batch_size: int = 128
+    num_workers: int = 8
+    seed: int = 11
+    val_per_class: int = 1
+    # ship RAW uint8 batches and normalize (x/255 - mean)/std on the
+    # device in the train/eval steps (4x fewer H2D bytes); augmentation
+    # then runs in uint8 space.  False normalizes on the host.
+    raw_input: bool = True
+    # synthetic-fallback dataset shape (used when no data_root is set)
+    synthetic_classes: int = 16
+    synthetic_samples: int = 16  # train samples per class
+    synthetic_val_samples: int = 4  # val samples per class
+    # yield the synthetic fixture as RAW uint8, so the driver's on-device
+    # normalization carries it; off by default (float [0, 1] images)
+    synthetic_uint8: bool = False
+
+    # optimization
+    optimizer: str = "sgd"  # or "adamw", "adamw_then_sgd" (ULTRON)
+    base_lr: float = 0.01
+    final_lr: float = 1e-6
+    warmup_lr: float = 1e-6
+    warmup_epochs: int = 1
+    num_epochs: int = 100
+    momentum: float = 0.9
+    weight_decay: float = 1e-4
+    clip_max_norm: float = 1.0
+    update_every: int = 1  # gradient accumulation
+    switch_epoch: int = 5  # optimizer hand-off epoch for adamw_then_sgd
+
+    # parallelism: one device; data_parallel / model_parallel > 1 raise
+    data_parallel: int | None = None
+    model_parallel: int = 1
+
+    # backbone compute dtype: "" or "float32"; "bfloat16" raises (a bf16
+    # autocast matching the JAX bf16 backbone is not ported yet)
+    compute_dtype: str = ""
+
+    # offline LLM-distillation teacher of the distillation models: not
+    # ported yet, teacher=True raises
+    teacher: bool = False
+    teacher_texts: str = ""  # one text per line, line i = class i; "" = synthetic template
+    teacher_model: str = "distilbert-base-uncased"
+    teacher_max_length: int = 64
+    teacher_allow_random: bool = False
+
+    # checkpointing / logging
+    directory: str = "checkpoints"
+    save_freq: int = 1
+    keep_every: int = 5
+    val_epoch: int = 1
+    print_freq: int = 200
+    resume: str | None = None
+    # TensorBoard event files alongside JSONL; needs the tensorboard
+    # package (raises without it)
+    tensorboard: bool = False
+    # the JAX driver redraws <directory>/curves.png every N epochs; the
+    # port draws no curves (matplotlib is not a dependency) and says so
+    plot_freq: int = 1
+
+    # "cuda" (raises without a card) or "cpu"
+    device: str = "cuda"
 
 
 @dataclasses.dataclass
@@ -35,3 +114,23 @@ class EvalConfig:
     pca_whiten: bool = False
     pca_dim: int = 0
     pca_shrinkage: float = 1.0
+
+
+# Per-model experiment presets (the JAX package's, for the models the
+# port has).
+PRESETS: dict[str, dict[str, Any]] = {
+    "gem_r50": dict(
+        model="gem_r50", optimizer="sgd", base_lr=0.01, num_epochs=100,
+        model_overrides=dict(s=32.0, m=0.15),
+    ),
+}
+
+
+def get_preset(name: str, **overrides) -> TrainConfig:
+    """Build a TrainConfig from a preset name plus overrides."""
+    if name not in PRESETS:
+        raise KeyError(f"Unknown preset '{name}'. Available: {sorted(PRESETS)}")
+    cfg = dict(PRESETS[name])
+    model_overrides = {**cfg.pop("model_overrides", {}),
+                       **overrides.pop("model_overrides", {})}
+    return TrainConfig(model_overrides=model_overrides, **{**cfg, **overrides})
