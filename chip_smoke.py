@@ -11,7 +11,11 @@ Phases (any failure raises and exits non-zero; there is no fallback):
      version alike, the ``ms`` and ``plain_ms`` of the summary), the
      kernel's device time per call (CUDA events around calls queued
      behind a device-side wait, ``device_ms``), each launch's device time
-     (torch.profiler, printed only), and its bounds;
+     (torch.profiler, printed only), and its bounds; then (2-bf16) the
+     bf16 forms: the bottleneck at the same 16 geometries and the head on
+     bf16 maps at the three layer4 shapes, each against its plain
+     version, timed, with the bound at 2-byte activations and the dense
+     bf16 rate;
   3. the main path (bucketed ms3 extraction with on-device scales) on
      CUDA against the port's own CPU path, same seeded GeM-R50 weights;
   4. the serving slice at full width (ResNet-50, 2048-d, 1024 px ms3):
@@ -27,18 +31,27 @@ Phases (any failure raises and exits non-zero; there is no fallback):
      engine calls and timed under 1 and 8 clients, the HTTP front end
      answers vector and image queries through an ``ImageExtractor``, and
      the CLI path's mAP equals phase 4's; both kernels' launches are
-     counted on the CLI step and on the HTTP / image step;
+     counted on the CLI step and on the HTTP / image step; 6.7
+     ``cli.evaluate --iqe --superglobal`` on the fixture laid out as a
+     Revisited dataset, against the same pipeline on 6.1's index;
   7. training on the card, under fp32 (TF32 off) as the trainer runs:
      7.1 the train step at full width (GeM-R50, 81,313-way ArcFace,
      512 px, TrainConfig's batch or the largest power of two that fits):
      ms per step, img/s, peak memory, TFLOP/s against the fp32 bound, a
      profiler breakdown, and one reduced step on the card against the CPU;
+     7.1-bf16 the same step at ``compute_dtype=bfloat16`` against the bf16
+     bound, beside the fp32 numbers;
      7.2 ``cli.train.main`` over an 81,313-way ``.rirrec`` file for 2
      epochs (img/s with the host pipeline, the busy share, the JSONL
-     history), and a preemption stop + ``--resume`` against the straight
-     run; 7.3 the rigorous synthetic task trained by ``train(cfg)``, its
-     test images through both kernels (launches counted, held against the
-     plain versions), accuracy and mAP beside the JAX record.
+     history), and a preemption stop + ``--resume`` bit-equal to the
+     straight run inside ``deterministic_mode()``; 7.3 the rigorous
+     synthetic task trained by ``train(cfg)``, its test images through
+     both kernels (launches counted, held against the plain versions),
+     accuracy and mAP beside the JAX record, and 7.3-bf16 the same at bf16
+     (validation and extraction through both kernels' bf16 forms);
+  8. gem_r101 and gem_r50 with ``dilation_block5`` at full width: CUDA
+     against the CPU path, the phase-4 fixture's img/s and mAP, and the
+     launches per backbone pass (29 and 10).
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Needs a CUDA device and the repo.
 """
@@ -63,6 +76,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SCALES = (1.0, 2 ** -0.5, 0.5)
 FP32_PEAK = 67e12   # H100 SXM fp32 (non-tensor) FLOP/s, NVIDIA data sheet
 TF32X3_PEAK = 495e12 / 3  # fp32-accurate products as three TF32 products
+BF16_PEAK = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s, data sheet
 HBM_RATE = 3.35e12  # H100 SXM HBM3 bytes/s
 R50_IDENTITY = ((256, 64, 256, 2), (512, 128, 128, 3),
                 (1024, 256, 64, 5), (2048, 512, 32, 2))  # C, Cw, side, blocks
@@ -498,6 +512,123 @@ def phase_bottleneck(torch, rb, fp32_precision):
                 bound_ms=tot["bound_ms"],
                 bound_by="bytes" if by_all == {"bytes"} else "operations",
                 device_ms=tot["device_ms"])
+
+
+def phase_bf16_kernels(torch, gh, rb) -> dict:
+    """Phase 2-bf16: the bf16 forms of both kernels at the main path's
+    shapes.  The bottleneck at the 16 geometries of phase 2 (the four R50
+    identity stages at B=2, 1024 px, and at B=8 in the three buckets),
+    with extents, and the head on a bf16 map at the three layer4 shapes
+    (B=8, extents, fp32 weight).  Bar: the kernel's error against the
+    fp32 plain version (the same bf16-rounded inputs, fp32 throughout) is
+    no worse than 1.5x the bf16 plain version's own; the head holds to
+    its plain version at rtol 1e-5 / atol 1e-6 (both pool the upcast map
+    in fp32).  Timed as phase 2: one call between CUDA events (kernel and
+    bf16 plain version) and the device time per call; the bound counts
+    2-byte activations and weights (fp32 affines) and the dense bf16
+    tensor-core rate."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    bf = torch.bfloat16
+    geoms = [(2, C, Cw, side, nblk, 1024)
+             for C, Cw, side, nblk in R50_IDENTITY]
+    geoms += [(8, C, Cw, side * px // 1024, nblk, px)
+              for px in BUCKETS for C, Cw, side, nblk in R50_IDENTITY]
+    tot = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    by_all, worst, max_diff = set(), 0.0, 0.0
+    for B, C, Cw, side, nblk, px in geoms:
+        x, ws, ext = bottleneck_inputs(torch, rb, g, B, side, side, C, Cw)
+        xb = x.to(bf)
+        del x
+        label = f"B={B} C={C} Cw={Cw} {side}x{side} ({px} px)"
+        got = rb.fused_bottleneck(xb, *ws, extents=ext)
+        plain = rb.fused_bottleneck_reference(xb, *ws, extents=ext)
+        f32 = rb.fused_bottleneck_reference(xb.float(), *ws, extents=ext)
+        torch.cuda.synchronize()
+        if got.dtype != bf or not bool(got.isfinite().all()):
+            raise AssertionError(f"bottleneck bf16 [{label}]: dtype "
+                                 f"{got.dtype} or non-finite output")
+        e_k = (got.double() - f32.double()).abs().max().item()
+        e_p = (plain.double() - f32.double()).abs().max().item()
+        d_kp = (got.double() - plain.double()).abs().max().item()
+        if e_k > 1.5 * e_p:
+            raise AssertionError(f"bottleneck bf16 [{label}]: kernel vs fp32 "
+                                 f"{e_k:.3e} > 1.5 x plain bf16 vs fp32 "
+                                 f"{e_p:.3e}")
+        worst = max(worst, e_k / e_p)
+        max_diff = max(max_diff, d_kp)
+        del got, plain, f32
+        run = lambda: rb.fused_bottleneck(xb, *ws, extents=ext)
+        ms = cuda_ms(torch, run)
+        plain_ms = cuda_ms(torch, lambda: rb.fused_bottleneck_reference(
+            xb, *ws, extents=ext))
+        dev = device_ms(torch, run)
+        M = B * side * side
+        Mv = int((ext[:, 0].clamp(0, side) * ext[:, 1].clamp(0, side)).sum())
+        flops = 2 * (Mv + M) * C * Cw + 18 * M * Cw * Cw + 6 * M * C
+        nbytes = (2 * (2 * M * C + 2 * C * Cw + 9 * Cw * Cw)
+                  + 4 * (4 * Cw + 2 * C) + 8 * B)
+        bnd, by = bound_ms(flops, nbytes, BF16_PEAK)
+        print(f"bottleneck bf16 {label}: kernel vs fp32 {e_k:.3e}, plain "
+              f"bf16 vs fp32 {e_p:.3e} (bar 1.5x), kernel vs plain bf16 "
+              f"{d_kp:.3e}; kernel {ms:.4f} ms per call between CUDA events, "
+              f"{dev:.4f} ms on the device, plain {plain_ms:.4f} ms, bound "
+              f"{bnd:.4f} ms at bf16 ({by}), {flops / dev / 1e9:.1f} TFLOP/s "
+              "on the device")
+        if B == 2:
+            tot["ms"] += nblk * ms
+            tot["device_ms"] += nblk * dev
+            tot["plain_ms"] += nblk * plain_ms
+            tot["bound_ms"] += nblk * bnd
+            by_all.add(by)
+        del xb, ws
+    print(f"bottleneck bf16, 12 identity blocks of one R50 pass (B=2, 1024 "
+          f"px): kernel {tot['ms']:.4f} ms in calls between CUDA events, "
+          f"{tot['device_ms']:.4f} ms on the device, plain "
+          f"{tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms at bf16; "
+          f"worst kernel / plain error ratio {worst:.3f} (bar 1.5), kernel vs "
+          f"plain bf16 at most {max_diff:.3e}")
+    rows = {"bottleneck": dict(
+        max_abs_err=max_diff, err_ratio_vs_fp32=worst, ms=tot["ms"],
+        plain_ms=tot["plain_ms"],
+        bound_ms=tot["bound_ms"],
+        bound_by="bytes" if by_all == {"bytes"} else "operations",
+        device_ms=tot["device_ms"])}
+
+    C = D = 2048
+    weight = torch.randn(D, C, device="cuda", generator=g) / math.sqrt(C)
+    bias = 0.01 * torch.randn(D, device="cuda", generator=g)
+    fp32 = dict(weight_dtype=torch.float32)
+    head_err, head = 0.0, {}
+    for side in (32, 24, 16):
+        B = 8
+        f = torch.randn(B, side, side, C, device="cuda",
+                        generator=g).abs().to(bf)
+        e = torch.randint(1, side + 1, (B, 2), device="cuda", generator=g,
+                          dtype=torch.int32)
+        for kw in (dict(fp32, extents=e), dict(weight_dtype=bf, extents=e),
+                   fp32):
+            got = gh.gem_whiten_l2(f, weight, bias, **kw)
+            want = gh.gem_whiten_l2_reference(f, weight, bias, **kw)
+            torch.cuda.synchronize()
+            head_err = max(head_err, check_close(
+                f"gem_head bf16 map {side}x{side}", got, want, 1e-5, 1e-6))
+        run = lambda: gh.gem_whiten_l2(f, weight, bias, extents=e, **fp32)
+        ms, dev = cuda_ms(torch, run), device_ms(torch, run)
+        plain = cuda_ms(torch, lambda: gh.gem_whiten_l2_reference(
+            f, weight, bias, extents=e, **fp32))
+        cells = int((e[:, 0].clamp(0, side) * e[:, 1].clamp(0, side)).sum())
+        flops = cells * C * 3 + 2 * B * C * D + 3 * B * D
+        nbytes = 2 * cells * C + 4 * (D * C + D + 2 * B + B * D)
+        bnd, by = bound_ms(flops, nbytes)
+        print(f"gem_head bf16 map B={B} {side}x{side}x{C}->{D}, fp32 weight, "
+              f"extents ({cells} of {B * side * side} cells valid): max|err| "
+              f"{head_err:.3e} (rtol 1e-5, atol 1e-6); kernel {ms:.4f} ms per "
+              f"call, {dev:.4f} ms on the device, plain {plain:.4f} ms, "
+              f"bound {bnd:.4f} ms ({by})")
+        head[side] = dict(max_abs_err=head_err, ms=ms, plain_ms=plain,
+                          bound_ms=bnd, bound_by=by, device_ms=dev)
+    rows["gem_head"] = head[32]
+    return rows
 
 
 PROFILE_GROUPS = (  # (group, substrings of kernel names), first match wins
@@ -1042,8 +1173,89 @@ def phase_serving(torch, gh, rb, gpu_model, phase4_map) -> dict:
             server.server_close()
         for svc in (svc8, svc16, svc32):
             svc.close()
+    if jpegs is None:
+        raise AssertionError("6.7 needs the fixture as JPEG files (OpenCV or "
+                             "PIL to encode them)")
+    phase_rerank_cli(torch, work, jdir, names, imgs, labels, q_idx, ckpt,
+                     fl["vecs"])
     shutil.rmtree(work, ignore_errors=True)
     return steps
+
+
+def phase_rerank_cli(torch, work, jdir, names, imgs, labels, q_idx, ckpt,
+                     vecs):
+    """6.7: ``cli.evaluate`` with ``--iqe`` (a seeded random-init IQE MLP
+    written as flattened flax params, the ``.npz`` layout a converted JAX
+    checkpoint has) and ``--superglobal`` on the fixture laid out as a
+    Revisited dataset (the JPEGs of 6.1; the first image of each class a
+    query, its box the whole image).  Its E/M/H mAP is held against the
+    same pipeline (``evaluation.driver._rank``) on 6.1's index of the same
+    files: equal within 0.5 points (the two extractions batch the images
+    differently, so cuDNN may sum in other orders)."""
+    import pickle
+
+    from research_image_retrieval_tpu_torch.cli import evaluate as cli_eval
+    from research_image_retrieval_tpu_torch.data import make_synthetic_gnd
+    from research_image_retrieval_tpu_torch.evaluation import (
+        compute_map_and_print,
+    )
+    from research_image_retrieval_tpu_torch.evaluation.driver import _rank
+    from research_image_retrieval_tpu_torch.index import (
+        IterativeQueryExpansion,
+        rank_full,
+    )
+    from research_image_retrieval_tpu_torch.utils.config import EvalConfig
+
+    root = os.path.join(work, "revisited")
+    jpg = os.path.join(root, "roxford5k", "jpg")
+    os.makedirs(jpg)
+    for n in names:
+        shutil.copy(os.path.join(jdir, n), os.path.join(jpg, n))
+    stems = [os.path.splitext(n)[0] for n in names]
+    gnd = make_synthetic_gnd(labels, q_idx)
+    for g, q in zip(gnd, q_idx):
+        g["bbx"] = (0.0, 0.0, float(imgs[q].shape[1]),
+                    float(imgs[q].shape[0]))
+    with open(os.path.join(root, "roxford5k", "gnd_roxford5k.pkl"), "wb") as f:
+        pickle.dump({"imlist": stems, "qimlist": [stems[q] for q in q_idx],
+                     "gnd": gnd}, f)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(6)
+        iqe = IterativeQueryExpansion(vecs.shape[1])
+    iqe_npz = os.path.join(work, "iqe_random_init.npz")
+    np.savez(iqe_npz, **{f"params/{m}/{k}": (
+        getattr(iqe, m).weight.detach().numpy().T if k == "kernel"
+        else getattr(iqe, m).bias.detach().numpy())
+        for m in ("expansion_fc1", "expansion_fc2")
+        for k in ("kernel", "bias")})
+    out = os.path.join(work, "rerank.json")
+    sg_m = 50
+    t0 = time.perf_counter()
+    cli_eval.main(["--datasets", "roxford5k", "--data-root", root,
+                   "--checkpoint", ckpt, "--multiscale", "--iqe",
+                   "--iqe-checkpoint", iqe_npz, "--superglobal", "--sg-m",
+                   str(sg_m), "--output", out])
+    cli_s = time.perf_counter() - t0
+    with open(out) as f:
+        got = tuple(json.load(f)["roxford5k"])
+    cfg = EvalConfig(iqe=True, iqe_checkpoint=iqe_npz, superglobal=True,
+                     sg_m=sg_m)
+    want = compute_map_and_print("roxford5k", "global", "test",
+                                 _rank(vecs[q_idx], vecs, cfg, "cuda"), gnd,
+                                 kappas=[1, 5, 10])
+    plain = compute_map_and_print("roxford5k", "global", "test",
+                                  rank_full(vecs[q_idx], vecs, device="cuda"),
+                                  gnd, kappas=[1, 5, 10])
+    if not all(math.isfinite(v) and 0.0 <= v <= 100.0 for v in got) or \
+            max(abs(a - b) for a, b in zip(got, want)) > 0.5:
+        raise AssertionError(f"6.7 cli.evaluate --iqe --superglobal mAP {got}"
+                             f" != the same pipeline on 6.1's index {want}")
+    print(f"serving 6.7: cli.evaluate --multiscale --iqe (seeded random-init "
+          f"MLP from a flattened-flax .npz) --superglobal --sg-m {sg_m} on the "
+          f"fixture as a Revisited dataset ({len(stems)} images, "
+          f"{len(q_idx)} queries) in {cli_s:.1f} s: E/M/H {got}; the same "
+          f"pipeline on 6.1's index {tuple(want)}; plain ranking "
+          f"{tuple(plain)}")
 
 
 # -- phase 7: training on the card -------------------------------------------
@@ -1102,11 +1314,12 @@ def _grouped(rows, groups, fallback="elementwise / other"):
     return out
 
 
-def phase_train_step(torch, smi: str) -> dict:
+def phase_train_step(torch, smi: str, dtype: str = "float32") -> dict:
     """7.1: the train step at full width (GeM-R50, 81,313-way ArcFace,
     512 px uint8 batches drawn on the card, SGD with TrainConfig's
-    defaults), at TrainConfig's batch or the largest power of two below
-    it that fits; then the same step at reduced size against the CPU."""
+    defaults) at compute dtype ``dtype``, at TrainConfig's batch or the
+    largest power of two below it that fits; then, for float32, the same
+    step at reduced size against the CPU (``check_cuda_train_step``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1131,7 +1344,7 @@ def phase_train_step(torch, smi: str) -> dict:
     cfg = TrainConfig()
     t0 = time.perf_counter()
     state = create_train_state(
-        get_model("gem_r50", num_classes=TRAIN_CLASSES), 0,
+        get_model("gem_r50", num_classes=TRAIN_CLASSES, dtype=dtype), 0,
         make_sgd_optimizer(cfg.base_lr, momentum=cfg.momentum,
                            weight_decay=cfg.weight_decay,
                            clip_max_norm=cfg.clip_max_norm), device="cuda")
@@ -1157,8 +1370,9 @@ def phase_train_step(torch, smi: str) -> dict:
             B //= 2
             if B < 8:
                 raise
+    tag = "7.1" if dtype == "float32" else "7.1-bf16"
     if tried:
-        print(f"train 7.1: batch {tried} does not fit in device memory; "
+        print(f"train {tag}: batch {tried} does not fit in device memory; "
               f"cut to {B} (the largest power of two that fits)")
     for _ in range(2):
         state, m = step(state, x, y)
@@ -1178,16 +1392,20 @@ def phase_train_step(torch, smi: str) -> dict:
         raise AssertionError(f"train step: loss {loss}, grad_norm {gn}, "
                              f"non-finite gradients in {bad[:5]}")
     flops = 3 * 2 * conv_linear_macs(torch, state.model, TRAIN_PX) * B
-    bound = flops / FP32_PEAK * 1e3
-    print(f"train 7.1: GeM-R50, {TRAIN_CLASSES}-way ArcFace (s 32, m 0.15), "
+    peak_rate, rate_name = ((FP32_PEAK, "fp32 FMA") if dtype == "float32"
+                            else (BF16_PEAK, "dense bf16 tensor-core"))
+    bound = flops / peak_rate * 1e3
+    print(f"train {tag}: GeM-R50 at {dtype}, {TRAIN_CLASSES}-way ArcFace "
+          f"(s 32, m 0.15), "
           f"{TRAIN_PX} px uint8, batch {B}, SGD lr {cfg.base_lr} nesterov "
           f"momentum {cfg.momentum} wd {cfg.weight_decay} clip "
           f"{cfg.clip_max_norm}: {ms:.1f} ms per step (10 steps between CUDA "
           f"events after 3), {1e3 * B / ms:.1f} img/s, peak "
           f"{peak / 2 ** 30:.2f} GiB allocated, "
           f"{flops / ms / 1e9:.1f} TFLOP/s of {flops / B / 1e9:.1f} GFLOP "
-          f"per image (3 x forward conv + linear FLOPs) against the fp32 FMA "
-          f"bound {bound:.1f} ms ({100 * bound / ms:.1f}%); loss {loss:.4f}, "
+          f"per image (3 x forward conv + linear FLOPs) against the "
+          f"{rate_name} bound {bound:.1f} ms ({100 * bound / ms:.1f}%); "
+          f"loss {loss:.4f}, "
           f"grad_norm {gn:.4f}; model init {init_s:.1f} s [{smi}]")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         state, m = step(state, x, y)
@@ -1199,8 +1417,8 @@ def phase_train_step(torch, smi: str) -> dict:
     if rows:
         groups = _grouped(rows, TRAIN_GROUPS)
         total = sum(groups.values())
-        print(f"train 7.1 profile (one step, printed only): {total:.1f} ms "
-              "of kernels")
+        print(f"train {tag} profile (one step, printed only): {total:.1f} "
+              "ms of kernels")
         for name, t in sorted(groups.items(), key=lambda kv: -kv[1]):
             print(f"  group {t:9.2f} ms {100 * t / total:5.1f}%  {name}")
         rows.sort(key=lambda e: -e.self_device_time_total)
@@ -1209,9 +1427,14 @@ def phase_train_step(torch, smi: str) -> dict:
             print(f"  {t:9.2f} ms {100 * t / total:5.1f}% x{e.count:<5d} "
                   f"{e.key[:100]}")
     else:
-        print("train 7.1 profile: no device time recorded (not measured)")
+        print(f"train {tag} profile: no device time recorded (not "
+              "measured)")
     del state, x, y, m, prof
     torch.cuda.empty_cache()
+    out = dict(batch=B, ms=ms, peak=peak, tried=tried, bound=bound,
+               img_s=1e3 * B / ms, tflops=flops / ms / 1e9)
+    if dtype != "float32":
+        return out
     par = check_cuda_train_step()
     print(f"train 7.1: one step at batch {STEP_CHECK['batch']}, "
           f"{STEP_CHECK['px']} px, resnet50, {STEP_CHECK['classes']} classes, "
@@ -1220,7 +1443,7 @@ def phase_train_step(torch, smi: str) -> dict:
                                 for k, (d, b, leaf) in par.items())
           + "; in float32, TF32 off through backward() and the caller's "
           "flags restored")
-    return dict(batch=B, ms=ms, peak=peak, tried=tried)
+    return out
 
 
 def _record_file(path: str, n_classes: int = 128, per_class: int = 2):
@@ -1264,8 +1487,10 @@ def phase_train_cli(torch, gh, rb, smi: str) -> dict:
     """7.2: ``cli.train.main`` over an 81,313-way record file, twice from
     the same seed: straight through 2 epochs (profiled: img/s with the
     host pipeline, the card's busy share), and stopped by the preemption
-    guard after epoch 0 then resumed; the two runs' final parameters are
-    compared (cuDNN deterministic in both)."""
+    guard after epoch 0 then resumed; the two runs' final parameters must
+    be bit-equal (both inside ``utils.profiling.deterministic_mode()``,
+    the process started with ``CUBLAS_WORKSPACE_CONFIG`` set: ``main``
+    sets it first)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1275,6 +1500,9 @@ def phase_train_cli(torch, gh, rb, smi: str) -> dict:
         training_init,
     )
     from research_image_retrieval_tpu_torch.train import driver as drv
+    from research_image_retrieval_tpu_torch.utils.profiling import (
+        deterministic_mode,
+    )
 
     work = os.path.join(ROOT, "build", "chip_smoke_train")
     shutil.rmtree(work, ignore_errors=True)
@@ -1301,31 +1529,29 @@ def phase_train_cli(torch, gh, rb, smi: str) -> dict:
                 return step(state, imgs, labels)
         return timed
 
-    det = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
     gh.gem_whiten_l2.launches = 0
     rb.fused_bottleneck.launches = 0
     try:
-        drv.make_train_step = timed_factory
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            train_cli(args + ["--directory", os.path.join(work, "a")])
-            torch.cuda.synchronize()
-        wall_a = time.perf_counter() - t0
-        drv.make_train_step = real_step
-        launches = {"gem_head": gh.gem_whiten_l2.launches,
-                    "bottleneck": rb.fused_bottleneck.launches}
-        t0 = time.perf_counter()
-        drv.PreemptionGuard = _stop_after(per_epoch)
-        train_cli(args + ["--directory", os.path.join(work, "b")])
-        drv.PreemptionGuard = real_guard
-        train_cli(args + ["--directory", os.path.join(work, "b"),
-                          "--resume", "latest"])
-        wall_b = time.perf_counter() - t0
+        with deterministic_mode():
+            drv.make_train_step = timed_factory
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                train_cli(args + ["--directory", os.path.join(work, "a")])
+                torch.cuda.synchronize()
+            wall_a = time.perf_counter() - t0
+            drv.make_train_step = real_step
+            launches = {"gem_head": gh.gem_whiten_l2.launches,
+                        "bottleneck": rb.fused_bottleneck.launches}
+            t0 = time.perf_counter()
+            drv.PreemptionGuard = _stop_after(per_epoch)
+            train_cli(args + ["--directory", os.path.join(work, "b")])
+            drv.PreemptionGuard = real_guard
+            train_cli(args + ["--directory", os.path.join(work, "b"),
+                              "--resume", "latest"])
+            wall_b = time.perf_counter() - t0
     finally:
         drv.make_train_step, drv.PreemptionGuard = real_step, real_guard
-        torch.backends.cudnn.deterministic = det
     if len(calls) != 2 * per_epoch:
         raise AssertionError(f"7.2 made {len(calls)} train steps, want "
                              f"{2 * per_epoch}")
@@ -1358,12 +1584,12 @@ def phase_train_cli(torch, gh, rb, smi: str) -> dict:
                       moved)
     worst = max(devs, key=devs.get)
     same = all(torch.equal(pa[k], pb[k]) for k in pa)
-    if devs[worst] > 1e-4:
-        raise AssertionError(f"7.2 resume: {worst} moved differently from "
-                             f"the straight run ({devs[worst]:.3e} of its "
-                             "largest change)")
+    if not same:
+        raise AssertionError(f"7.2 resume inside deterministic_mode() is not "
+                             f"bit-equal to the straight run: {worst} moved "
+                             f"{devs[worst]:.3e} of its largest change apart")
     print(f"train 7.2: cli.train.main, {TRAIN_CLASSES}-way head, {TRAIN_PX} "
-          f"px, batch {B}, 8 decode / augment threads, cuDNN deterministic: "
+          f"px, batch {B}, 8 decode / augment threads, deterministic_mode(): "
           f"{img_s:.1f} img/s including the host pipeline (steps 1-{per_epoch}"
           f" of each epoch, host clock, profiler on), device busy "
           f"{100 * busy / span:.1f}% of that window (union of kernel "
@@ -1412,12 +1638,18 @@ def self_excluded_map(feats: np.ndarray, labels: np.ndarray) -> float:
     return evaluate_revisited(ranks, gnd, dataset="synthetic").map_easy / 100
 
 
-def phase_trained_kernels(torch, gh, rb, smi: str) -> dict:
+def phase_trained_kernels(torch, gh, rb, smi: str,
+                          dtype: str = "float32") -> dict:
     """7.3: the rigorous synthetic task (benchmarks/
-    rigorous_synthetic_gem_r50.json's config) trained by ``train(cfg)``,
-    then its 500 test images through ``extract`` (both kernels) and
-    through the kernels' plain versions on the card; accuracy, both mAPs
-    and the int8 engine's agreement with the fp32 engine."""
+    rigorous_synthetic_gem_r50.json's config) trained by ``train(cfg)`` at
+    compute dtype ``dtype`` (its validation runs the bottleneck kernel:
+    launches counted), then its 500 test images through ``extract`` (both
+    kernels) and through the kernels' plain versions on the card;
+    accuracy, both mAPs and the int8 engine's agreement with the fp32
+    engine.  At float32 the kernels' descriptors hold to the plain
+    versions' at atol 1e-4; at bf16 both are held against the trained
+    weights' fp32 descriptors, and the kernels' error may not exceed 1.5x
+    the plain versions' own."""
     from research_image_retrieval_tpu_torch.data import (
         IMAGENET_MEAN,
         IMAGENET_STD,
@@ -1435,9 +1667,12 @@ def phase_trained_kernels(torch, gh, rb, smi: str) -> dict:
     from research_image_retrieval_tpu_torch.train.loop import make_eval_step
     from research_image_retrieval_tpu_torch.utils.config import TrainConfig
 
+    from research_image_retrieval_tpu_torch.models import get_model
+
+    tag = "7.3" if dtype == "float32" else "7.3-bf16"
     work = os.path.join(ROOT, "build", "chip_smoke_rigorous")
     shutil.rmtree(work, ignore_errors=True)
-    cfg = TrainConfig(
+    cfg = TrainConfig(compute_dtype=dtype,
         model="gem_r50", model_overrides=dict(outputdim=512, s=16.0, m=0.05),
         imsize=RIGOROUS_PX, batch_size=32, num_workers=8, final_lr=1e-5,
         weight_decay=1e-4, warmup_epochs=1, num_epochs=RIGOROUS_EPOCHS,
@@ -1446,9 +1681,12 @@ def phase_trained_kernels(torch, gh, rb, smi: str) -> dict:
         synthetic_val_samples=10, synthetic_uint8=True, directory=work,
         print_freq=0, plot_freq=0, seed=11, save_freq=RIGOROUS_EPOCHS,
         device="cuda")
+    _reset_launches(gh, rb)
     t0 = time.perf_counter()
     state, history = train(cfg)
     train_s = time.perf_counter() - t0
+    val_launches = {"gem_head": gh.gem_whiten_l2.launches,
+                    "bottleneck": rb.fused_bottleneck.launches}
     model = state.model.eval()
     norm = (IMAGENET_MEAN, IMAGENET_STD)
     test = SyntheticRetrievalDataset(num_classes=50, samples_per_class=10,
@@ -1475,10 +1713,28 @@ def phase_trained_kernels(torch, gh, rb, smi: str) -> dict:
         plain = run()
     finally:
         bb.fused_bottleneck, gem_mod.gem_whiten_l2 = kern
-    err = check_close("7.3 kernel vs plain descriptors", torch.from_numpy(vecs),
-                      torch.from_numpy(plain), 0.0, 1e-4)
     if vecs.shape != (500, 512) or not np.isfinite(vecs).all():
-        raise AssertionError(f"7.3 descriptors: {vecs.shape}")
+        raise AssertionError(f"{tag} descriptors: {vecs.shape}")
+    if dtype == "float32":
+        err = check_close("7.3 kernel vs plain descriptors",
+                          torch.from_numpy(vecs), torch.from_numpy(plain),
+                          0.0, 1e-4)
+        bar = "atol 1e-4"
+    else:  # both bf16 forms against the same weights computed in fp32
+        twin = get_model("gem_r50", num_classes=state.model.classifier_w
+                         .shape[0], **cfg.model_overrides).cuda().eval()
+        twin.load_state_dict(state.model.state_dict())
+        model = twin
+        ref32 = run()
+        err = float(np.abs(vecs - ref32).max())
+        err_plain = float(np.abs(plain - ref32).max())
+        if not err <= 1.5 * err_plain:
+            raise AssertionError(f"7.3-bf16: kernel descriptors {err:.3e} "
+                                 "from the fp32 ones, more than 1.5 x the "
+                                 f"plain versions' {err_plain:.3e}")
+        bar = (f"vs the fp32 descriptors; plain bf16 {err_plain:.2e}, bar "
+               f"1.5x; kernel vs plain {np.abs(vecs - plain).max():.2e}")
+        del twin, ref32
     ref = reference_protocol_map(vecs, labels)
     self_ex = self_excluded_map(vecs, labels)
     q8, s8 = quantize_gallery_int8(torch.from_numpy(vecs).to("cuda"))
@@ -1489,29 +1745,114 @@ def phase_trained_kernels(torch, gh, rb, smi: str) -> dict:
     agree1 = float((i8[:, 0] == i32[:, 0]).mean())
     agree2 = float((i8[:, 1] == i32[:, 1]).mean())
     same_cls = float((labels[i8[:, 1]] == labels).mean())
-    print(f"train 7.3: rigorous synthetic task (50 classes, {RIGOROUS_PX} px,"
+    print(f"train {tag}: rigorous synthetic task at {dtype} (50 classes, "
+          f"{RIGOROUS_PX} px,"
           f" 30 train / 10 test per class, {RIGOROUS_EPOCHS} epochs, AdamW lr "
           "1e-3, batch 32, outputdim "
           f"512, s 16, m 0.05) via train(cfg) in {train_s:.1f} s; train loss "
           f"by epoch {[round(v, 4) for v in history['train_loss']]}, val top-1 "
-          f"err {[round(v, 2) for v in history['val_top1_err']]} [{smi}]")
-    print(f"train 7.3: test top-1 accuracy {acc:.2f}% (JAX record "
+          f"err {[round(v, 2) for v in history['val_top1_err']]}; "
+          f"validation launches {val_launches} [{smi}]")
+    print(f"train {tag}: test top-1 accuracy {acc:.2f}% (JAX record "
           f"{RIGOROUS['test_accuracy']}%); reference-protocol mAP "
           f"{ref['mAP']:.4f} P@5 {ref['P@5']:.4f} P@10 {ref['P@10']:.4f} (JAX "
           f"{RIGOROUS['reference_mAP']}); self-excluded Revisited mAP "
-          f"{self_ex:.4f} (JAX {RIGOROUS['self_excluded_mAP']}); kernel vs "
-          f"plain descriptors max|err| {err:.2e} (atol 1e-4); extraction "
+          f"{self_ex:.4f} (JAX {RIGOROUS['self_excluded_mAP']}); kernel "
+          f"descriptors max|err| {err:.2e} ({bar}); extraction "
           f"launches {launches}; int8 engine vs fp32 engine: top-1 "
           f"{100 * agree1:.1f}% equal, nearest other row {100 * agree2:.1f}% "
           f"equal, int8's nearest other row in the query's class "
           f"{100 * same_cls:.1f}%")
     if acc < 90.0:
-        raise AssertionError(f"7.3 test accuracy {acc:.2f}% < 90% floor")
+        raise AssertionError(f"{tag} test accuracy {acc:.2f}% < 90% floor")
+    if val_launches["bottleneck"] == 0 or 0 in launches.values():
+        raise AssertionError(f"{tag}: a kernel was not launched: validation "
+                             f"{val_launches}, extraction {launches}")
     shutil.rmtree(work, ignore_errors=True)
-    return dict(launches=launches, acc=acc)
+    return dict(launches=launches, val_launches=val_launches, acc=acc,
+                max_abs_err=err)
+
+
+def phase_flagship(torch, gh, rb, smi: str) -> dict:
+    """Phase 8: the rest of the flagship at full width, seeded weights
+    (``seeded_init(seed=0)``): gem_r101, and gem_r50 with
+    ``dilation_block5=True``.  For each: the main path (bucketed ms3,
+    on-device scales) on CUDA against the port's CPU path on two images
+    at 1e-4; the phase-4 fixture (128 images, 1024 px ms3) through
+    ``serving_slice`` twice (the second run warm: img/s on the host
+    clock), its mAP, and each kernel's launches over that run against the
+    backbone passes it made (29 bottleneck launches per R101 pass, 10 per
+    dilated R50 pass: its two dilated identity blocks run cuDNN)."""
+    from research_image_retrieval_tpu_torch.data import (
+        IMAGENET_MEAN,
+        IMAGENET_STD,
+    )
+    from research_image_retrieval_tpu_torch.index import extract_vectors
+    from research_image_retrieval_tpu_torch.models import (
+        get_model,
+        seeded_init,
+    )
+
+    imgs, labels = serving_fixture(16, 1024)
+    few = [((im.astype(np.float32) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD)
+           for im in procedural_images([(512, 683), (384, 512)], seed=5)]
+    kw = dict(scales=SCALES, bucket=128, batch_size=8, device_scales=True,
+              antialias=False)
+    out = {}
+    for name, overrides, per_pass in (
+            ("gem_r101", {}, 29),
+            ("gem_r50 dilation_block5", dict(dilation_block5=True), 10)):
+        cpu_model = get_model(name.split()[0], num_classes=8, **overrides)
+        seeded_init(cpu_model, seed=0)
+        cpu_model.eval()
+        gpu_model = copy.deepcopy(cpu_model).cuda().eval()
+        got = extract_vectors(lambda x, v: gpu_model.extract(x, v), few,
+                              device="cuda", **kw)
+        t0 = time.perf_counter()
+        want = extract_vectors(lambda x, v: cpu_model.extract(x, v), few,
+                               device="cpu", **kw)
+        cpu_s = time.perf_counter() - t0
+        err = check_close(f"8 {name} cuda vs cpu", torch.from_numpy(got),
+                          torch.from_numpy(want), 0.0, 1e-4)
+        del cpu_model
+        passes = [0]
+        hook = gpu_model.backbone.register_forward_hook(
+            lambda *a: passes.__setitem__(0, passes[0] + 1))
+        serving_slice(gpu_model, imgs, labels, SCALES, bucket=128, k=100,
+                      device="cuda")  # warm: cuDNN plans of every bucket
+        passes[0] = 0
+        _reset_launches(gh, rb)
+        res = serving_slice(gpu_model, imgs, labels, SCALES, bucket=128,
+                            k=100, device="cuda")
+        launches = {"gem_head": gh.gem_whiten_l2.launches,
+                    "bottleneck": rb.fused_bottleneck.launches}
+        hook.remove()
+        if launches != {"gem_head": passes[0],
+                        "bottleneck": per_pass * passes[0]}:
+            raise AssertionError(f"8 {name}: launches {launches} over "
+                                 f"{passes[0]} backbone passes, want "
+                                 f"{per_pass} bottleneck launches per pass")
+        if res["vecs"].shape != (len(imgs), 2048):
+            raise AssertionError(f"8 {name}: descriptors {res['vecs'].shape}")
+        img_s = len(imgs) / res["extract_s"]
+        print(f"flagship 8 {name}: cuda vs cpu (2 images, ms3, bucket 128) "
+              f"max|err| {err:.3e} (atol 1e-4; cpu {cpu_s:.1f} s); fixture "
+              f"{len(imgs)} images at 1024 px ms3 warm: "
+              f"{res['extract_s']:.2f} s = {img_s:.2f} img/s (host clock); "
+              f"mAP E/M/H {res['mAP']}; launches {launches} over "
+              f"{passes[0]} backbone passes ({per_pass} bottleneck launches "
+              f"per pass) [{smi}]")
+        out[name] = dict(launches=launches, img_s=img_s, mAP=res["mAP"],
+                         max_abs_err=err)
+        del gpu_model
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
+    # cuBLAS reads this when the process makes its first handle; 7.2's
+    # deterministic_mode() needs it (utils/profiling.py)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -1554,6 +1895,8 @@ def main() -> int:
     # -- 2: kernels against their plain versions -------------------------
     rows = {"gem_head": phase_gem_head(torch, gh),
             "bottleneck": phase_bottleneck(torch, rb, fp32_precision)}
+    torch.cuda.empty_cache()
+    rows_bf16 = phase_bf16_kernels(torch, gh, rb)
     torch.cuda.empty_cache()
 
     # -- 3: main path on CUDA vs the port's CPU path ---------------------
@@ -1633,17 +1976,30 @@ def main() -> int:
 
     # -- 7: training on the card ------------------------------------------
     t0 = time.perf_counter()
-    phase_train_step(torch, smi)
+    step32 = phase_train_step(torch, smi)
+    step16 = phase_train_step(torch, smi, dtype="bfloat16")
+    print(f"train 7.1 at bf16 beside fp32: {step16['ms']:.1f} vs "
+          f"{step32['ms']:.1f} ms per step, {step16['img_s']:.1f} vs "
+          f"{step32['img_s']:.1f} img/s, {step16['tflops']:.1f} vs "
+          f"{step32['tflops']:.1f} TFLOP/s ({100 * step16['bound'] / step16['ms']:.1f}% "
+          f"of the bf16 bound, {100 * step32['bound'] / step32['ms']:.1f}% of "
+          f"the fp32 one), peak {step16['peak'] / 2 ** 30:.2f} vs "
+          f"{step32['peak'] / 2 ** 30:.2f} GiB, batch {step16['batch']} vs "
+          f"{step32['batch']} [{smi}]")
     cli_run = phase_train_cli(torch, gh, rb, smi)
     trained = phase_trained_kernels(torch, gh, rb, smi)
+    trained16 = phase_trained_kernels(torch, gh, rb, smi, dtype="bfloat16")
     print(f"training phase: {time.perf_counter() - t0:.1f} s")
     # 7.2's eval step pools without the head kernel (as the JAX eval step
     # does); 7.3's extraction runs both kernels
-    if cli_run["launches"]["bottleneck"] == 0 or 0 in trained[
-            "launches"].values():
-        raise AssertionError(f"a kernel was not launched on the training "
-                             f"path: 7.2 validation {cli_run['launches']}, "
-                             f"7.3 extraction {trained['launches']}")
+    if cli_run["launches"]["bottleneck"] == 0:
+        raise AssertionError(f"the bottleneck kernel was not launched in "
+                             f"7.2's validation: {cli_run['launches']}")
+
+    # -- 8: gem_r101 and the dilated gem_r50 at full width ----------------
+    t0 = time.perf_counter()
+    flagship = phase_flagship(torch, gh, rb, smi)
+    print(f"flagship phase: {time.perf_counter() - t0:.1f} s")
 
     src = "research_image_retrieval_tpu_torch/csrc/"
     replaces = {
@@ -1657,9 +2013,22 @@ def main() -> int:
                                       for step, n in serving.items()},
                     train_launches={
                         "7.2 validation": cli_run["launches"][name],
+                        "7.3 validation": trained["val_launches"][name],
                         "7.3 trained-weights extraction":
-                            trained["launches"][name]})
+                            trained["launches"][name]},
+                    flagship_launches={k: v["launches"][name]
+                                       for k, v in flagship.items()})
                for name in ("gem_head", "bottleneck")]
+    # the bf16 forms: their main path is a bf16 model's (7.3-bf16), its
+    # extraction counted as ``launches``, its validation beside it
+    kernels += [dict(name=f"{name}[bf16]", route="cuda",
+                     source=f"{src}{name}.cu", replaces=replaces[name],
+                     launches=trained16["launches"][name], library_ms=None,
+                     **rows_bf16[name],
+                     train_launches={
+                         "7.3-bf16 validation":
+                             trained16["val_launches"][name]})
+                for name in ("gem_head", "bottleneck")]
     print(json.dumps({"kernels": kernels}))
     print(f"gpu: {smi}")
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,11 @@
 """Evaluation CLI: extract + rank + Revisited protocol mAP
 (port of ``research_image_retrieval_tpu/cli/evaluate.py`` with the flags
-of what the port has: multiscale, host scales, alpha-QE and PCA
-whitening; IQE, SuperGlobal, CVNet, local reranking and the split DCT
-decode are not ported yet).  A dataset missing under ``--data-root``
-falls back to the synthetic fixture and says so.
+of what the port has: multiscale, host scales, alpha-QE, PCA whitening,
+the learned IQE and SuperGlobal reranking; CVNet, local reranking and the
+split DCT decode are not ported yet).  ``--iqe-checkpoint`` reads a
+``.pt`` state dict or an ``.npz`` of flattened flax params, not orbax.
+A dataset missing under ``--data-root`` falls back to the synthetic
+fixture and says so.
 
     python -m research_image_retrieval_tpu_torch.cli.evaluate \
         --model gem_r50 --datasets roxford5k rparis6k \
@@ -37,6 +39,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="learn PCA whitening on the gallery, apply both sides")
     p.add_argument("--pca-dim", type=int, default=0)
     p.add_argument("--pca-shrinkage", type=float, default=1.0)
+    p.add_argument("--superglobal", action="store_true",
+                   help="SuperGlobal-style global-feature reranking of the "
+                        "top-M shortlist (index/superglobal.py)")
+    p.add_argument("--sg-m", type=int, default=100)
+    p.add_argument("--iqe", action="store_true",
+                   help="learned iterative query expansion (index/qe.py); "
+                        "loads its MLP from --iqe-checkpoint, else it runs "
+                        "random-init")
+    p.add_argument("--iqe-k", type=int, default=5)
+    p.add_argument("--iqe-iterations", type=int, default=2)
+    p.add_argument("--iqe-gamma", type=float, default=0.6)
+    p.add_argument("--iqe-checkpoint", default=None,
+                   help=".pt state dict or .npz of flattened flax params")
     p.add_argument("--output", default=None, help="write results JSON here")
     p.add_argument("--output-csv", default=None,
                    help="write a combined CSV (dataset, easy, medium, hard)")
@@ -65,6 +80,13 @@ def main(argv=None):
         pca_whiten=args.pca_whiten,
         pca_dim=args.pca_dim,
         pca_shrinkage=args.pca_shrinkage,
+        iqe=args.iqe,
+        iqe_k=args.iqe_k,
+        iqe_iterations=args.iqe_iterations,
+        iqe_gamma=args.iqe_gamma,
+        iqe_checkpoint=args.iqe_checkpoint,
+        superglobal=args.superglobal,
+        sg_m=args.sg_m,
     )
     results = evaluate(cfg, device=args.device)
     if args.output:

@@ -1,11 +1,11 @@
 """Descriptor-extraction CLI: images in, L2-normalized descriptors out
-(port of ``research_image_retrieval_tpu/cli/extract.py``; ``--records``
-is not ported yet).
+(port of ``research_image_retrieval_tpu/cli/extract.py``).
 
-Point it at an image directory or a Revisited dataset and it writes an
-``.npz`` index (``vecs`` [N, D] float32, or ``vecs_int8`` + ``scales``,
-plus ``names``) in the JAX package's layout, ready for ``cli.search`` or
-``cli.serve`` of either package.
+Point it at an image directory, a packed record file (``.rirrec``) or a
+Revisited dataset and it writes an ``.npz`` index (``vecs`` [N, D]
+float32, or ``vecs_int8`` + ``scales``, plus ``names``, and ``labels``
+for a record file) in the JAX package's layout, ready for ``cli.search``
+or ``cli.serve`` of either package.
 
     python -m research_image_retrieval_tpu_torch.cli.extract \
         --model gem_r50 --images /data/jpegs --checkpoint gem_r50.pt \
@@ -26,6 +26,8 @@ def build_parser() -> argparse.ArgumentParser:
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--images", default=None,
                      help="directory of images (jpg/jpeg/png, recursive)")
+    src.add_argument("--records", default=None,
+                     help="packed .rirrec file (cli.pack)")
     src.add_argument("--dataset", default=None,
                      help="Revisited dataset name (needs --data-root)")
     p.add_argument("--data-root", default="")
@@ -130,7 +132,18 @@ def main(argv=None):
                      imsize=args.imsize)
     model = _load_model(cfg, device=args.device)
     imsize = args.imsize or None
-    if args.images:
+    labels = None
+    if args.records:
+        from research_image_retrieval_tpu_torch.data import RecordDataset
+
+        # records decode to RGB uint8; max_side only prescales (1/2^k), so
+        # extract_index's thumbnail still applies, as for image files
+        ds = RecordDataset(args.records,
+                           max_side=args.imsize if args.fast_decode else 0)
+        labels = ds.labels()
+        names = [str(i) for i in range(len(ds))]
+        loader = (ds[i][0] for i in range(len(ds)))
+    elif args.images:
         paths = list(_iter_image_files(args.images))
         if not paths:
             raise SystemExit(f"no images under {args.images}")
@@ -143,14 +156,17 @@ def main(argv=None):
             bbxs = [ds.query_bbx(i) for i in range(ds.nq)]
         else:
             names, paths, bbxs = list(ds.imlist), ds.im_fnames, None
-    loader = PrefetchedImages(ImageFromList(
-        paths, imsize=imsize, bbxs=bbxs, raw_uint8=True,
-        fast_decode=args.fast_decode))
+    if not args.records:
+        loader = PrefetchedImages(ImageFromList(
+            paths, imsize=imsize, bbxs=bbxs, raw_uint8=True,
+            fast_decode=args.fast_decode))
     out = extract_index(model, loader, names, imsize=args.imsize,
                         multiscale=args.multiscale,
                         host_scales=args.host_scales,
                         batch_size=args.batch_size,
                         quantize_int8=args.quantize_int8, device=args.device)
+    if labels is not None:
+        out["labels"] = np.asarray(labels)
     np.savez(args.output, **out)
     shape = out.get("vecs", out.get("vecs_int8")).shape
     kind = "int8 " if args.quantize_int8 else ""

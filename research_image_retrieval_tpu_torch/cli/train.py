@@ -6,8 +6,16 @@ the same flags, plus ``--device``).
 
 ``--data-root`` names a ``.rirrec`` record file (``cli.pack``) or, with
 ``--csv-path``, a GLDv2 image tree; without it the run trains on the
-deterministic synthetic classes.  ``--data-parallel`` / ``--model-parallel``
-> 1, ``--teacher`` and ``--dtype bfloat16`` raise (not ported yet).
+deterministic synthetic classes.  ``--dtype bfloat16`` computes the
+backbone in bf16 (parameters, losses and optimizer stay fp32); fp32 is
+the default.  ``--data-parallel`` / ``--model-parallel`` > 1 and
+``--teacher`` raise (not ported yet).
+
+``--resume`` continues a run exactly on the CPU.  On CUDA it is bit-exact
+only when the whole run, first part and resumed part, executes inside
+``utils.profiling.deterministic_mode()`` with
+``CUBLAS_WORKSPACE_CONFIG=:4096:8`` set before the process starts;
+cuDNN's default algorithms are not deterministic.
 """
 
 from __future__ import annotations
@@ -43,7 +51,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--clip-max-norm", type=float, default=None)
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--directory", default=None, help="checkpoint directory")
-    p.add_argument("--resume", default=None)
+    p.add_argument("--resume", default=None,
+                   help="'latest' or an epoch_NNNNN.pt path; bit-exact on "
+                        "CUDA only inside utils.profiling."
+                        "deterministic_mode() (see the module docstring)")
     p.add_argument("--save-freq", type=int, default=None)
     p.add_argument("--num-workers", type=int, default=None)
     p.add_argument("--data-parallel", type=int, default=None,
@@ -52,8 +63,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="> 1 raises: multi-GPU is not ported yet")
     p.add_argument("--dtype", dest="compute_dtype", default=None,
                    choices=("float32", "bfloat16"),
-                   help="backbone compute dtype; bfloat16 raises (not "
-                        "ported yet)")
+                   help="backbone compute dtype (default float32); the "
+                        "parameters, losses and optimizer stay float32")
     p.add_argument("--host-norm", dest="raw_input", action="store_false",
                    default=None,
                    help="normalize inputs on the host (float32 batches) "

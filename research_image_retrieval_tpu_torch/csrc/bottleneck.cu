@@ -60,9 +60,28 @@
 // every M the main path launches.  The epilogue applies the folded BN,
 // the residual, the ReLU and the extents mask before one store.  No
 // atomics: the result does not change from run to run.
+//
+// bf16 form (rir_fused_bottleneck_bf16): what the TPU kernel computes at
+// dt = bf16 (resblock_pallas.py:84-100, 112-153): products of bf16 values
+// accumulated in fp32, the folded BN and the residual in fp32, and t1, t2
+// and out rounded to bf16 (round to nearest even).  The same pipeline
+// with bf16 operands: a 128-byte stage row holds 64 bf16 values of K, and
+// each stage is four wgmma.mma_async m64nBNk16 .f32.bf16.bf16 with A and
+// B both read from shared memory (128-byte swizzle, K-major).  One
+// product per slice: no split, and the accumulator carries the whole K
+// (its truncation is far below bf16's rounding).  The weights are bf16
+// K-major [N, K], rounded once per weight tensor by the wrapper; t1 and
+// t2 are bf16.  At bf16 the tensor cores' dense 989 TFLOP/s against
+// 3.35 TB/s puts the ridge at ~295 FLOP per byte, and a block does ~0.53
+// * C FLOP per byte of x and out (2 bytes each): layer1 (C = 256, ~135)
+// and layer2 (~270) sit below it, so at bf16 the chain is bytes bound
+// in the early layers.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -413,18 +432,245 @@ conv_gemm_tf32x3(const float* __restrict__ A, const float* __restrict__ Wt,
   }
 }
 
+// D[64 x N] += A[64 x 16] * B[16 x N], both bf16 K-major in shared memory.
+__device__ __forceinline__ void wgmma_bf16_n64(float* d, uint64_t desc_a, uint64_t desc_b,
+                                               int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_bf16_n128(float* d, uint64_t desc_a, uint64_t desc_b,
+                                                int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// The bf16 form of conv_gemm_tf32x3 (same arguments, same tiles and ring;
+// see the note at the top): out[m, n] = bf16(epilogue(sum_k A[m, k] *
+// Wt[n, k])), A and Wt bf16, Wt [N, K] K-major, resid bf16 [M, N] or
+// null.  K must be a multiple of 64 (one stage), Cin too with TAP3.
 template <int NWG, int BN, bool TAP3>
-void launch_tile(const float* A, const float* Wt, const float* sb, const float* resid,
-                 const int* extents, float* out, int M, int K, int N, int H, int W, int Cin,
+__global__ void __launch_bounds__(128 * (NWG + 1), 1)
+conv_gemm_bf16(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ Wt,
+               const float* __restrict__ sb, const __nv_bfloat16* __restrict__ resid,
+               const int* __restrict__ extents, __nv_bfloat16* __restrict__ out, int M, int K,
+               int N, int H, int W, int Cin) {
+  constexpr int BK = 64;  // K depth of one stage: 128 bytes of bf16
+  constexpr int BM = 64 * NWG;
+  constexpr int A_BYTES = BM * 128;
+  constexpr int B_BYTES = BN * 128;
+  constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sbase = (raw + 1023u) & ~1023u;  // swizzle atoms need 1024-byte alignment
+  const uint32_t full0 = sbase + kStages * STAGE_BYTES;
+  const uint32_t empty0 = full0 + 8 * kStages;
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 128);
+      mbar_init(empty0 + 8 * s, 128 * NWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int m0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  const int KT = K / BK;
+  const int HW = H * W;
+
+  if (wg == NWG) {
+    // ---- producer warpgroup: 16-byte chunk `chunk` (8 values) of rows row0 + 16 i ----
+    const int pt = tid - 128 * NWG;
+    const int chunk = pt & 7;
+    const int row0 = pt >> 3;
+    constexpr int AR = BM / 16;
+    constexpr int BR = BN / 16;
+    const __nv_bfloat16* a_row = A + static_cast<long long>(m0 + row0) * Cin + chunk * 8;
+    const __nv_bfloat16* w_row = Wt + static_cast<long long>(n0 + row0) * K + chunk * 8;
+    int ahw[AR];
+#pragma unroll
+    for (int i = 0; i < AR; ++i) {
+      const int rem = (m0 + row0 + 16 * i) % HW;
+      ahw[i] = ((rem / W) << 16) | (rem % W);
+    }
+    for (int kt = 0; kt < KT; ++kt) {
+      const int s = kt % kStages;
+      mbar_wait(empty0 + 8 * s, ((kt / kStages) & 1) ^ 1);
+      const int k0 = kt * BK;
+      const uint32_t sa = sbase + s * STAGE_BYTES;
+      int dy = 1, dx = 1, ci = k0;
+      if (TAP3) {
+        const int tap = k0 / Cin;
+        ci = k0 - tap * Cin;
+        dy = tap / 3;
+        dx = tap - 3 * dy;
+      }
+      const int tap_off = ((dy - 1) * W + (dx - 1)) * Cin + ci;
+#pragma unroll
+      for (int i = 0; i < AR; ++i) {
+        const int r = row0 + 16 * i;
+        bool ok = m0 + r < M;
+        if (TAP3) {
+          const int hh = (ahw[i] >> 16) + dy - 1;
+          const int ww = (ahw[i] & 0xffff) + dx - 1;
+          ok = ok && hh >= 0 && hh < H && ww >= 0 && ww < W;
+        }
+        const __nv_bfloat16* src = ok ? a_row + (16 * i * Cin + tap_off) : A;
+        cp_async16(sa + r * 128 + ((chunk ^ (r & 7)) << 4), src, ok);
+      }
+      const uint32_t sb_w = sa + A_BYTES;
+#pragma unroll
+      for (int i = 0; i < BR; ++i) {
+        const int r = row0 + 16 * i;
+        cp_async16(sb_w + r * 128 + ((chunk ^ (r & 7)) << 4), w_row + (16 * i * K + k0), true);
+      }
+      cp_async_mbar_arrive(full0 + 8 * s);
+    }
+  } else {
+    // ---- consumer warpgroup wg: output rows wg * 64 .. + 63 of the tile ----
+    const int lane = tid & 31;
+    const int warp = (tid >> 5) & 3;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int ra = wg * 64 + warp * 16 + g;  // this thread's output rows: ra, ra + 8
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    fence_regs(acc);
+    for (int kt = 0; kt < KT; ++kt) {
+      const int s = kt % kStages;
+      mbar_wait(full0 + 8 * s, (kt / kStages) & 1);
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      const uint32_t sa = sbase + s * STAGE_BYTES + wg * 64 * 128;
+      const uint32_t sw = sbase + s * STAGE_BYTES + A_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t da = desc_sw128(sa + 32 * kk);
+        const uint64_t db = desc_sw128(sw + 32 * kk);
+        if constexpr (BN == 128) {
+          wgmma_bf16_n128(acc, da, db, kt > 0 || kk > 0);
+        } else {
+          wgmma_bf16_n64(acc, da, db, kt > 0 || kk > 0);
+        }
+      }
+      wgmma_commit();
+      // the previous stage's products have retired: release its slot
+      wgmma_wait<1>();
+      fence_regs(acc);
+      if (kt > 0) mbar_arrive(empty0 + 8 * ((kt - 1) % kStages));
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    // ---- epilogue: folded BN, residual, ReLU, extents mask, bf16; 4-byte stores ----
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int m = m0 + ra + 8 * hr;
+      if (m >= M) continue;
+      bool zero = false;
+      if (extents != nullptr) {
+        const int b = m / HW;
+        const int rem = m - b * HW;
+        const int h = rem / W;
+        zero = h >= extents[2 * b] || rem - h * W >= extents[2 * b + 1];
+      }
+      __nv_bfloat16* orow = out + static_cast<long long>(m) * N;
+      const __nv_bfloat16* rrow =
+          resid != nullptr ? resid + static_cast<long long>(m) * N : nullptr;
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i) {
+        const int n = n0 + 8 * i + 2 * t;
+        const float2 sc = *reinterpret_cast<const float2*>(sb + n);
+        const float2 bi = *reinterpret_cast<const float2*>(sb + N + n);
+        float2 v;
+        v.x = acc[4 * i + 2 * hr] * sc.x + bi.x;
+        v.y = acc[4 * i + 2 * hr + 1] * sc.y + bi.y;
+        if (rrow != nullptr) {
+          const float2 rv =
+              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(rrow + n));
+          v.x += rv.x;
+          v.y += rv.y;
+        }
+        v.x = zero ? 0.f : fmaxf(v.x, 0.f);
+        v.y = zero ? 0.f : fmaxf(v.y, 0.f);
+        *reinterpret_cast<__nv_bfloat162*>(orow + n) = __floats2bfloat162_rn(v.x, v.y);
+      }
+    }
+  }
+}
+
+template <typename T, int NWG, int BN, bool TAP3>
+void launch_tile(const T* A, const T* Wt, const float* sb, const T* resid,
+                 const int* extents, T* out, int M, int K, int N, int H, int W, int Cin,
                  cudaStream_t s) {
   constexpr int BM = 64 * NWG;
-  constexpr int SMEM = smem_bytes<NWG, BN>();
-  auto kern = conv_gemm_tf32x3<NWG, BN, TAP3>;
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  (void)attr;  // a refusal shows as the launch's error
-  const dim3 grid((M + BM - 1) / BM, N / BN);
-  kern<<<grid, 128 * (NWG + 1), SMEM, s>>>(A, Wt, sb, resid, extents, out, M, K, N, H, W, Cin);
+  constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
+  // bf16 stages hold one weight copy; fp32 stages its (big, small) pair
+  constexpr int SMEM = kBf16 ? kStages * (BM * 128 + BN * 128) + 2 * kStages * 8 + 1024
+                             : smem_bytes<NWG, BN>();
+  auto run = [&](auto kern) {
+    static const cudaError_t attr =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    (void)attr;  // a refusal shows as the launch's error
+    const dim3 grid((M + BM - 1) / BM, N / BN);
+    kern<<<grid, 128 * (NWG + 1), SMEM, s>>>(A, Wt, sb, resid, extents, out, M, K, N, H, W,
+                                             Cin);
+  };
+  if constexpr (kBf16) {
+    run(conv_gemm_bf16<NWG, BN, TAP3>);
+  } else {
+    run(conv_gemm_tf32x3<NWG, BN, TAP3>);
+  }
 }
 
 // Waves of `tiles` blocks on the card (one block per SM: the ring takes
@@ -443,23 +689,23 @@ int waves(long long tiles) {
 // block has one consumer warpgroup and runs at ~0.6x the rate of a
 // 128-row block, so it wins only where 128-row tiles leave a wave
 // mostly empty (M <= ~4608 at N = 512 on the main path).
-template <bool TAP3>
-void launch_gemm(const float* A, const float* Wt, const float* sb, const float* resid,
-                 const int* extents, float* out, int M, int K, int N, int H, int W, int Cin,
+template <typename T, bool TAP3>
+void launch_gemm(const T* A, const T* Wt, const float* sb, const T* resid,
+                 const int* extents, T* out, int M, int K, int N, int H, int W, int Cin,
                  cudaStream_t s) {
   const int bn = N % 128 == 0 ? 128 : 64;
   const long long cols = N / bn;
   const bool small = 0.6 * waves(((M + 63) / 64) * cols) < waves(((M + 127) / 128) * cols);
   if (bn == 128) {
     if (small)
-      launch_tile<1, 128, TAP3>(A, Wt, sb, resid, extents, out, M, K, N, H, W, Cin, s);
+      launch_tile<T, 1, 128, TAP3>(A, Wt, sb, resid, extents, out, M, K, N, H, W, Cin, s);
     else
-      launch_tile<2, 128, TAP3>(A, Wt, sb, resid, extents, out, M, K, N, H, W, Cin, s);
+      launch_tile<T, 2, 128, TAP3>(A, Wt, sb, resid, extents, out, M, K, N, H, W, Cin, s);
   } else {
     if (small)
-      launch_tile<1, 64, TAP3>(A, Wt, sb, resid, extents, out, M, K, N, H, W, Cin, s);
+      launch_tile<T, 1, 64, TAP3>(A, Wt, sb, resid, extents, out, M, K, N, H, W, Cin, s);
     else
-      launch_tile<2, 64, TAP3>(A, Wt, sb, resid, extents, out, M, K, N, H, W, Cin, s);
+      launch_tile<T, 2, 64, TAP3>(A, Wt, sb, resid, extents, out, M, K, N, H, W, Cin, s);
   }
 }
 
@@ -477,8 +723,28 @@ extern "C" int rir_fused_bottleneck(const float* x, const float* w1, const float
                                     int Cw, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int M = B * H * W;
-  launch_gemm<false>(x, w1, sb1, nullptr, extents, t1, M, C, Cw, H, W, C, s);
-  launch_gemm<true>(t1, w2, sb2, nullptr, nullptr, t2, M, 9 * Cw, Cw, H, W, Cw, s);
-  launch_gemm<false>(t2, w3, sb3, x, nullptr, out, M, Cw, C, H, W, Cw, s);
+  launch_gemm<float, false>(x, w1, sb1, nullptr, extents, t1, M, C, Cw, H, W, C, s);
+  launch_gemm<float, true>(t1, w2, sb2, nullptr, nullptr, t2, M, 9 * Cw, Cw, H, W, Cw, s);
+  launch_gemm<float, false>(t2, w3, sb3, x, nullptr, out, M, Cw, C, H, W, Cw, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 form: x, t1, t2, out bf16 as above; w1 [Cw, C], w2 [Cw, 9 * Cw]
+// (K ordered (dy, dx, ci)), w3 [C, Cw]: each the bf16 K-major weight;
+// sb1 / sb2 / sb3 fp32 as above.  C and Cw must be multiples of 64.
+// Returns cudaGetLastError().
+extern "C" int rir_fused_bottleneck_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w1,
+                                         const float* sb1, const __nv_bfloat16* w2,
+                                         const float* sb2, const __nv_bfloat16* w3,
+                                         const float* sb3, const int* extents,
+                                         __nv_bfloat16* t1, __nv_bfloat16* t2,
+                                         __nv_bfloat16* out, int B, int H, int W, int C, int Cw,
+                                         void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int M = B * H * W;
+  using bf = __nv_bfloat16;
+  launch_gemm<bf, false>(x, w1, sb1, nullptr, extents, t1, M, C, Cw, H, W, C, s);
+  launch_gemm<bf, true>(t1, w2, sb2, nullptr, nullptr, t2, M, 9 * Cw, Cw, H, W, Cw, s);
+  launch_gemm<bf, false>(t2, w3, sb3, x, nullptr, out, M, Cw, C, H, W, Cw, s);
   return static_cast<int>(cudaGetLastError());
 }

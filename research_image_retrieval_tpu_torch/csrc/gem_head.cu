@@ -29,7 +29,10 @@
 //      read: with extents the block walks the eh x ew region alone (the
 //      bucket padding and crops cost no bytes); with a dense mask it skips
 //      the load where the mask is 0.  The block finishes the mean and the
-//      root, once per value, and writes pooled[B, C].
+//      root, once per value, and writes pooled[B, C].  A bf16 map (the
+//      layer4 output of a bf16 model) is read the same way, 8 values per
+//      16-byte load (64-channel tiles), and pooled in fp32, as the TPU
+//      kernel upcasts its block; it halves the pool's bytes.
 //   2. project_kernel: one block per (32 output columns, channel slice,
 //      8 images); the wrapper cuts C into KS slices (up to 4 of >= 512
 //      channels; each a multiple of 8, so every 16-byte weight load stays
@@ -53,8 +56,7 @@ namespace {
 
 constexpr int kPoolThreads = 256;                 // 8 warps
 constexpr int kPoolWarps = kPoolThreads / 32;
-constexpr int kPoolLanes = 8;                     // lanes per pixel, a float4 each
-constexpr int kPoolChannels = 4 * kPoolLanes;     // channels per block
+constexpr int kPoolLanes = 8;                     // lanes per pixel, 16 bytes each
 constexpr int kPoolPixels = kPoolThreads / kPoolLanes;  // pixels per block step
 constexpr int kPoolUnroll = 8;                    // pixels in flight per thread
 constexpr int kProjWarps = 8;
@@ -63,95 +65,7 @@ constexpr int kProjSteps = 4;                     // 16-byte weight loads in fli
 constexpr int kProjImages = 8;                    // images per block
 constexpr int kNormThreads = 1024;
 
-// clamp(x, eps)^p for v = clamp(x, eps) > 0, as exp2(p * log2(v)): its
-// relative error is ~|p log2 v| * 2^-24 (under 1e-6 over the activations'
-// range) at a fraction of powf's cost, whose extended-precision log set
-// the pool's pace.
-__device__ __forceinline__ float gem_pow(float v, float p) { return exp2f(p * log2f(v)); }
-
-// pooled[b, c] = (sum over image b's valid cells of clamp(x, eps)^p * m
-//                 / max(sum m, 1))^(1/p), one block per (channel tile, b).
-__global__ void __launch_bounds__(kPoolThreads)
-gem_pool_kernel(const float* __restrict__ x, const int* __restrict__ extents,
-                const float* __restrict__ mask, const float* __restrict__ p_ptr,
-                float* __restrict__ pooled, int H, int W, int C, float eps) {
-  const int b = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int cg = threadIdx.x % kPoolLanes;  // channel group of 4
-  const int c = blockIdx.x * kPoolChannels + cg * 4;
-  const bool cvalid = c < C;
-  const int HW = H * W;
-  int eh = H, ew = W;
-  if (extents != nullptr) {
-    eh = min(max(extents[2 * b], 0), H);
-    ew = min(max(extents[2 * b + 1], 0), W);
-  }
-  const float* xb = x + (size_t)b * HW * C;
-  const float* mb = mask != nullptr ? mask + (size_t)b * HW : nullptr;
-  const int n = mb != nullptr ? HW : eh * ew;  // cells this image visits
-  const float p = *p_ptr;
-
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  float cnt = 0.f;
-  const int px = threadIdx.x / kPoolLanes;  // this thread's pixel in each step
-  for (int i0 = px; i0 < n; i0 += kPoolPixels * kPoolUnroll) {
-    float4 v[kPoolUnroll];
-    float m[kPoolUnroll];
-#pragma unroll
-    for (int u = 0; u < kPoolUnroll; ++u) {
-      const int i = i0 + u * kPoolPixels;
-      v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-      m[u] = 0.f;
-      if (i < n) {
-        int cell = i;  // a dense mask visits every cell
-        if (mb != nullptr) {
-          m[u] = mb[i];
-        } else {
-          m[u] = 1.f;
-          cell = i + (i / ew) * (W - ew);  // the i-th cell of the eh x ew region
-        }
-        if (cvalid && m[u] != 0.f)
-          v[u] = *reinterpret_cast<const float4*>(xb + (size_t)cell * C + c);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kPoolUnroll; ++u) {
-      acc.x += gem_pow(fmaxf(v[u].x, eps), p) * m[u];
-      acc.y += gem_pow(fmaxf(v[u].y, eps), p) * m[u];
-      acc.z += gem_pow(fmaxf(v[u].z, eps), p) * m[u];
-      acc.w += gem_pow(fmaxf(v[u].w, eps), p) * m[u];
-      cnt += m[u];
-    }
-  }
-  // sum over the warp's pixels (lanes kPoolLanes apart share channels)
-#pragma unroll
-  for (int off = kPoolLanes; off < 32; off <<= 1) {
-    acc.x += __shfl_xor_sync(0xffffffffu, acc.x, off);
-    acc.y += __shfl_xor_sync(0xffffffffu, acc.y, off);
-    acc.z += __shfl_xor_sync(0xffffffffu, acc.z, off);
-    acc.w += __shfl_xor_sync(0xffffffffu, acc.w, off);
-    cnt += __shfl_xor_sync(0xffffffffu, cnt, off);
-  }
-
-  __shared__ __align__(16) float red[kPoolWarps][kPoolChannels];
-  __shared__ float red_cnt[kPoolWarps];
-  if (lane < kPoolLanes) *reinterpret_cast<float4*>(&red[warp][lane * 4]) = acc;
-  if (lane == 0) red_cnt[warp] = cnt;
-  __syncthreads();
-  if (threadIdx.x < kPoolChannels) {
-    const int cc = blockIdx.x * kPoolChannels + threadIdx.x;
-    float sum = 0.f, total = 0.f;
-#pragma unroll
-    for (int k = 0; k < kPoolWarps; ++k) {
-      sum += red[k][threadIdx.x];
-      total += red_cnt[k];
-    }
-    if (cc < C) pooled[(size_t)b * C + cc] = powf(sum / fmaxf(total, 1.f), 1.f / p);
-  }
-}
-
-// 16 bytes of a weight row as fp32.
+// 16 bytes of a weight row or of a map pixel as fp32.
 __device__ __forceinline__ void load_w(const float* w, float (&o)[4]) {
   const float4 v = *reinterpret_cast<const float4*>(w);
   o[0] = v.x;
@@ -167,6 +81,100 @@ __device__ __forceinline__ void load_w(const __nv_bfloat16* w, float (&o)[8]) {
     const float2 f = __bfloat1622float2(h[i]);
     o[2 * i] = f.x;
     o[2 * i + 1] = f.y;
+  }
+}
+
+// clamp(x, eps)^p for v = clamp(x, eps) > 0, as exp2(p * log2(v)): its
+// relative error is ~|p log2 v| * 2^-24 (under 1e-6 over the activations'
+// range) at a fraction of powf's cost, whose extended-precision log set
+// the pool's pace.
+__device__ __forceinline__ float gem_pow(float v, float p) { return exp2f(p * log2f(v)); }
+
+// pooled[b, c] = (sum over image b's valid cells of clamp(x, eps)^p * m
+//                 / max(sum m, 1))^(1/p), one block per (channel tile, b).
+// T is the map's type: each lane reads 16 bytes of a pixel (4 fp32 or 8
+// bf16 channels) and pools in fp32.
+template <typename T>
+__global__ void __launch_bounds__(kPoolThreads)
+gem_pool_kernel(const T* __restrict__ x, const int* __restrict__ extents,
+                const float* __restrict__ mask, const float* __restrict__ p_ptr,
+                float* __restrict__ pooled, int H, int W, int C, float eps) {
+  constexpr int VEC = 16 / sizeof(T);              // channels per lane
+  constexpr int CH = VEC * kPoolLanes;             // channels per block
+  const int b = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int cg = threadIdx.x % kPoolLanes;  // channel group of VEC
+  const int c = blockIdx.x * CH + cg * VEC;
+  const bool cvalid = c < C;
+  const int HW = H * W;
+  int eh = H, ew = W;
+  if (extents != nullptr) {
+    eh = min(max(extents[2 * b], 0), H);
+    ew = min(max(extents[2 * b + 1], 0), W);
+  }
+  const T* xb = x + (size_t)b * HW * C;
+  const float* mb = mask != nullptr ? mask + (size_t)b * HW : nullptr;
+  const int n = mb != nullptr ? HW : eh * ew;  // cells this image visits
+  const float p = *p_ptr;
+
+  float acc[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+  float cnt = 0.f;
+  const int px = threadIdx.x / kPoolLanes;  // this thread's pixel in each step
+  for (int i0 = px; i0 < n; i0 += kPoolPixels * kPoolUnroll) {
+    float v[kPoolUnroll][VEC];
+    float m[kPoolUnroll];
+#pragma unroll
+    for (int u = 0; u < kPoolUnroll; ++u) {
+      const int i = i0 + u * kPoolPixels;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) v[u][e] = 0.f;
+      m[u] = 0.f;
+      if (i < n) {
+        int cell = i;  // a dense mask visits every cell
+        if (mb != nullptr) {
+          m[u] = mb[i];
+        } else {
+          m[u] = 1.f;
+          cell = i + (i / ew) * (W - ew);  // the i-th cell of the eh x ew region
+        }
+        if (cvalid && m[u] != 0.f) load_w(xb + (size_t)cell * C + c, v[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kPoolUnroll; ++u) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[e] += gem_pow(fmaxf(v[u][e], eps), p) * m[u];
+      cnt += m[u];
+    }
+  }
+  // sum over the warp's pixels (lanes kPoolLanes apart share channels)
+#pragma unroll
+  for (int off = kPoolLanes; off < 32; off <<= 1) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], off);
+    cnt += __shfl_xor_sync(0xffffffffu, cnt, off);
+  }
+
+  __shared__ __align__(16) float red[kPoolWarps][CH];
+  __shared__ float red_cnt[kPoolWarps];
+  if (lane < kPoolLanes) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) red[warp][lane * VEC + e] = acc[e];
+  }
+  if (lane == 0) red_cnt[warp] = cnt;
+  __syncthreads();
+  if (threadIdx.x < CH) {
+    const int cc = blockIdx.x * CH + threadIdx.x;
+    float sum = 0.f, total = 0.f;
+#pragma unroll
+    for (int k = 0; k < kPoolWarps; ++k) {
+      sum += red[k][threadIdx.x];
+      total += red_cnt[k];
+    }
+    if (cc < C) pooled[(size_t)b * C + cc] = powf(sum / fmaxf(total, 1.f), 1.f / p);
   }
 }
 
@@ -329,20 +337,28 @@ cudaError_t launch_project(const float* pooled, const void* w, float* ypart, int
 
 }  // namespace
 
-// x: [B, H, W, C] fp32 contiguous (C % 4 == 0; C % 8 == 0 for a bf16
-// weight).  extents: [B, 2] int32 or null; mask: [B, H, W] fp32 or null
+// x: [B, H, W, C] fp32 (x_bf16 == 0) or bf16 (x_bf16 == 1) contiguous
+// (C % 4 == 0; C % 8 == 0 for a bf16 map or weight).  extents: [B, 2] int32 or null; mask: [B, H, W] fp32 or null
 // (at most one of the two).  p: one fp32 on the device.  w: [D, C] fp32
 // (w_bf16 == 0) or bf16 (w_bf16 == 1).  ks >= 1: the projection's channel
 // slices.  pooled [B, C] and ypart [ks, B, D]: fp32 scratch.  out: [B, D]
 // fp32.  Returns the first CUDA error of the launches.
-extern "C" int rir_gem_whiten_l2(const float* x, const int* extents, const float* mask,
+extern "C" int rir_gem_whiten_l2(const void* x, const int* extents, const float* mask,
                                  const float* p, const void* w, const float* bias,
-                                 float* pooled, float* ypart, float* out, int w_bf16, int B,
-                                 int H, int W, int C, int D, int ks, float eps, void* stream) {
+                                 float* pooled, float* ypart, float* out, int w_bf16,
+                                 int x_bf16, int B, int H, int W, int C, int D, int ks,
+                                 float eps, void* stream) {
   if (ks < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const dim3 g1((C + kPoolChannels - 1) / kPoolChannels, B);
-  gem_pool_kernel<<<g1, kPoolThreads, 0, s>>>(x, extents, mask, p, pooled, H, W, C, eps);
+  if (x_bf16) {
+    const dim3 g1((C + 8 * kPoolLanes - 1) / (8 * kPoolLanes), B);
+    gem_pool_kernel<__nv_bfloat16><<<g1, kPoolThreads, 0, s>>>(
+        reinterpret_cast<const __nv_bfloat16*>(x), extents, mask, p, pooled, H, W, C, eps);
+  } else {
+    const dim3 g1((C + 4 * kPoolLanes - 1) / (4 * kPoolLanes), B);
+    gem_pool_kernel<float><<<g1, kPoolThreads, 0, s>>>(reinterpret_cast<const float*>(x),
+                                                       extents, mask, p, pooled, H, W, C, eps);
+  }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   e = w_bf16 ? launch_project<__nv_bfloat16>(pooled, w, ypart, B, C, D, ks, s)

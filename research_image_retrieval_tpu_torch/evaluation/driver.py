@@ -1,8 +1,15 @@
 """Evaluation driver: extract -> rank -> Revisited protocol mAP
 (port of ``research_image_retrieval_tpu/evaluation/driver.py``: model
-loading, ``evaluate`` with PCA whitening and alpha-QE, and
-``evaluate_synthetic``; IQE, SuperGlobal, CVNet and local reranking are
-not ported yet).
+loading, ``evaluate`` and ``evaluate_synthetic`` with the JAX pipeline's
+order: PCA whitening, alpha-QE, the learned IQE or a plain rank, then
+SuperGlobal reranking; CVNet and local reranking are not ported yet).
+
+The IQE MLP's weights come from ``EvalConfig.iqe_checkpoint``: a ``.pt``
+state dict of ``index.qe.IterativeQueryExpansion`` or an ``.npz`` of its
+flax params flattened with ``/`` keys (``params/expansion_fc1/kernel``
+...), not an orbax directory.  Without one it runs from torch's seeded
+init, which is not flax's draw: its ranks differ from the JAX
+random-init ranks (a warning says the MLP is untrained).
 
 A dataset whose directory is missing falls back to the synthetic fixture
 and says so.  Checkpoints are ``.pt`` / ``.pth`` state dicts (the port's
@@ -33,9 +40,13 @@ from research_image_retrieval_tpu_torch.evaluation.revisited import (
     compute_map_and_print,
 )
 from research_image_retrieval_tpu_torch.index import (
+    IterativeQueryExpansion,
     alpha_query_expansion,
     extract_vectors,
+    iqe_from_flax,
     rank_full,
+    search_topk,
+    superglobal_rerank,
 )
 from research_image_retrieval_tpu_torch.models import (
     from_jax_variables,
@@ -51,7 +62,8 @@ from research_image_retrieval_tpu_torch.ops.whiten import (
 from research_image_retrieval_tpu_torch.utils.config import EvalConfig
 from research_image_retrieval_tpu_torch.utils.device import resolve_device
 
-__all__ = ["EvalConfig", "evaluate", "evaluate_synthetic", "load_checkpoint"]
+__all__ = ["EvalConfig", "evaluate", "evaluate_synthetic", "load_checkpoint",
+           "load_iqe"]
 
 
 def _unflatten(flat) -> dict:
@@ -144,6 +156,80 @@ def _expand(qvecs, vecs, cfg: EvalConfig, device):
                                  alpha=cfg.qe_alpha).cpu().numpy()
 
 
+def _splice_ranks(ranks: np.ndarray, heads: np.ndarray) -> np.ndarray:
+    """Each query's reordered shortlist first, then the rest of the
+    gallery in its original rank order.  ``ranks`` [db, nq]; ``heads``
+    [nq, k] gallery ids."""
+    ranks = np.asarray(ranks).copy()
+    for qi in range(ranks.shape[1]):
+        head = heads[qi]
+        in_head = np.zeros(ranks.shape[0], bool)
+        in_head[head] = True
+        tail = ranks[:, qi][~in_head[ranks[:, qi]]]
+        ranks[:, qi] = np.concatenate([head, tail])
+    return ranks
+
+
+def load_iqe(cfg: EvalConfig, embed_dim: int) -> IterativeQueryExpansion:
+    """The IQE module of ``cfg``: weights from ``cfg.iqe_checkpoint``
+    (``.pt`` state dict, or ``.npz`` of flattened flax params), else
+    torch's init under seed 0, with a warning that it is untrained."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = IterativeQueryExpansion(
+            embed_dim=embed_dim, top_k=cfg.iqe_k,
+            max_iterations=cfg.iqe_iterations, gamma=cfg.iqe_gamma)
+    path = cfg.iqe_checkpoint
+    if path:
+        if os.path.isdir(path):
+            raise ValueError(f"{path} is a directory (an orbax checkpoint?); "
+                             "the port reads a .pt state dict or an .npz of "
+                             "flax params flattened with '/' keys")
+        if path.endswith(".npz"):
+            with np.load(path, allow_pickle=False) as flat:
+                sd = iqe_from_flax(_unflatten({k: flat[k]
+                                               for k in flat.files}))
+        else:
+            sd = torch.load(path, map_location="cpu", weights_only=True)
+            sd = sd.get("model", sd)
+        model.load_state_dict(sd)
+        print(f">> IQE checkpoint {path}: {len(sd)} arrays loaded")
+    else:
+        print(">> WARNING: IQE expansion running from RANDOM init "
+              "(no iqe_checkpoint) — the expansion MLP is untrained")
+    return model
+
+
+def _iqe_ranks(qvecs, vecs, cfg: EvalConfig, device) -> np.ndarray:
+    """[db, nq] ranks from the IQE's blended final scores (stable order,
+    as ``jnp.argsort``)."""
+    model = load_iqe(cfg, int(qvecs.shape[1])).to(device)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    with torch.no_grad():
+        final = model(t(qvecs), t(vecs))["final_scores"]
+        order = torch.argsort(-final, dim=1, stable=True)
+    return order.cpu().numpy().T
+
+
+def _superglobal_ranks(qvecs, vecs, ranks, cfg: EvalConfig, device):
+    """The top-M of each query reranked by SuperGlobal, spliced back into
+    the full [db, nq] ranks."""
+    M = min(cfg.sg_m, vecs.shape[0])
+    s, i = search_topk(qvecs, vecs, k=M, device=device)
+    _, ni = superglobal_rerank(qvecs, vecs, s, i, device=device)
+    return _splice_ranks(ranks, ni)
+
+
+def _rank(qvecs, vecs, cfg: EvalConfig, device) -> np.ndarray:
+    """The ranks of the configured pipeline after whitening and alpha-QE:
+    the IQE's or a plain rank, then SuperGlobal."""
+    ranks = (_iqe_ranks(qvecs, vecs, cfg, device) if cfg.iqe
+             else rank_full(qvecs, vecs, device=device))
+    if cfg.superglobal:
+        ranks = _superglobal_ranks(qvecs, vecs, ranks, cfg, device)
+    return ranks
+
+
 def evaluate(cfg: EvalConfig, device="cuda") -> dict:
     """Evaluate on the configured Revisited datasets on ``device``;
     returns ``{dataset: (E, M, H)}`` mAP in percent."""
@@ -178,7 +264,7 @@ def evaluate(cfg: EvalConfig, device="cuda") -> dict:
                 vecs, qvecs = _whiten(vecs, qvecs, cfg, dev)
             if cfg.alpha_qe:
                 qvecs = _expand(qvecs, vecs, cfg, dev)
-            ranks = rank_full(qvecs, vecs, device=dev)
+            ranks = _rank(qvecs, vecs, cfg, dev)
             results[dataset] = compute_map_and_print(
                 dataset, "global", "test", ranks, ds.gnd,
                 kappas=list(cfg.kappas))
@@ -192,7 +278,8 @@ def evaluate_synthetic(model, cfg: EvalConfig = EvalConfig(),
     ``model`` (in eval mode) extracts 12 classes x 8 renders at
     ``min(cfg.imsize, 128)`` px on ``device``; the first render of each
     class is its query; PCA whitening and alpha-QE follow ``cfg`` in
-    ``evaluate``'s order.  Returns the (E, M, H) mAP in percent.
+    ``evaluate``'s order, then IQE and SuperGlobal.  Returns the (E, M,
+    H) mAP in percent.
     """
     dev = resolve_device(device)
     ds = SyntheticRetrievalDataset(num_classes=12, samples_per_class=8,
@@ -208,6 +295,6 @@ def evaluate_synthetic(model, cfg: EvalConfig = EvalConfig(),
     if cfg.alpha_qe:
         qvecs = _expand(qvecs, vecs, cfg, dev)
     gnd = make_synthetic_gnd(labels, q_idx)
-    ranks = rank_full(qvecs, vecs, device=dev)
+    ranks = _rank(qvecs, vecs, cfg, dev)
     return compute_map_and_print("roxford5k", "global", "synthetic", ranks,
                                  gnd, kappas=list(cfg.kappas))

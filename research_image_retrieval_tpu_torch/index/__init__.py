@@ -3,13 +3,22 @@ from research_image_retrieval_tpu_torch.index.extract import (
     multiscale_descriptor,
     resize_bilinear_np,
 )
-from research_image_retrieval_tpu_torch.index.qe import alpha_query_expansion
+from research_image_retrieval_tpu_torch.index.qe import (
+    IterativeQueryExpansion,
+    alpha_query_expansion,
+    iqe_from_flax,
+)
 from research_image_retrieval_tpu_torch.index.search import (
     cosine_similarity,
     rank_full,
     search_topk,
 )
+from research_image_retrieval_tpu_torch.index.superglobal import (
+    gem_aggregate,
+    superglobal_rerank,
+)
 
-__all__ = ["alpha_query_expansion", "cosine_similarity", "extract_vectors",
-           "multiscale_descriptor", "rank_full", "resize_bilinear_np",
-           "search_topk"]
+__all__ = ["IterativeQueryExpansion", "alpha_query_expansion",
+           "cosine_similarity", "extract_vectors", "gem_aggregate",
+           "iqe_from_flax", "multiscale_descriptor", "rank_full",
+           "resize_bilinear_np", "search_topk", "superglobal_rerank"]

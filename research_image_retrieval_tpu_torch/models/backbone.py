@@ -16,8 +16,21 @@ stem conv, the pool and every stride-2 block.
 
 Training mode follows flax's BatchNorm, not torch's (``BatchNorm``
 below): batch statistics normalize with the biased variance, and the
-running variance averages that biased variance.  ``dilation_block5`` and
-``stride_on_conv1`` of the JAX ``ResNet`` are not ported.
+running variance averages that biased variance.
+
+``dtype`` is the JAX model's compute dtype, with flax's semantics: at
+bf16 each convolution casts its input and its fp32 weight to bf16 and
+gives bf16 (fp32 accumulation), batch norm takes the bf16 input, reduces
+and normalizes in fp32 and gives bf16, ReLU, max pool and residual adds
+run in bf16, and parameters and running statistics stay fp32.  In eval
+mode the identity blocks run the bottleneck kernel's bf16 form.
+``dilation_block5`` replaces layer4's stride 2 with dilation-2 3x3s (the
+reference's surgery: the first block runs at stride 1, undilated); the
+dilated identity blocks run the module form, since the kernel has no
+dilation.  ``stem_s2d`` is accepted and computes the plain 7x7/2 stem:
+the JAX space-to-depth form is the same arithmetic rearranged for the
+TPU's matrix unit, with the same ``conv1`` parameter.
+``stride_on_conv1`` (dolg's scratch backbone) is not ported.
 """
 
 from __future__ import annotations
@@ -37,8 +50,8 @@ from research_image_retrieval_tpu_torch.ops.resblock import (
 )
 from research_image_retrieval_tpu_torch.utils.device import fp32_precision
 
-__all__ = ["BasicBlock", "BatchNorm", "BottleneckBlock", "RESNET_STAGE_DEPTHS",
-           "ResNet", "stage_extents"]
+__all__ = ["BasicBlock", "BatchNorm", "BottleneckBlock", "Conv2d",
+           "RESNET_STAGE_DEPTHS", "ResNet", "compute_dtype", "stage_extents"]
 
 RESNET_STAGE_DEPTHS = {
     "resnet18": (2, 2, 2, 2),
@@ -50,10 +63,33 @@ RESNET_STAGE_DEPTHS = {
 _BASIC = {"resnet18", "resnet34"}
 
 
-def stage_extents(valid_hw: torch.Tensor, stage: int) -> torch.Tensor:
+def stage_extents(valid_hw: torch.Tensor, stage: int,
+                  dilation_block5: bool = False) -> torch.Tensor:
     """Valid (h, w) extents of a ResNet stage tap (2 = layer1 ... 5 =
-    layer4) from input-pixel extents: every downsampling ceil-halves."""
-    return downsample_extents(valid_hw, {2: 2, 3: 3, 4: 4, 5: 5}[stage])
+    layer4) from input-pixel extents: every downsampling ceil-halves
+    (layer4 does not with ``dilation_block5``)."""
+    halvings = {2: 2, 3: 3, 4: 4, 5: 4 if dilation_block5 else 5}[stage]
+    return downsample_extents(valid_hw, halvings)
+
+
+def compute_dtype(dtype) -> torch.dtype:
+    """A model's compute dtype from ``torch.float32`` / ``torch.bfloat16``
+    or their names (``""`` is float32)."""
+    names = {"": torch.float32, "float32": torch.float32,
+             "bfloat16": torch.bfloat16}
+    dt = names.get(dtype) if isinstance(dtype, str) else dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute dtype {dtype!r}: float32 or bfloat16")
+    return dt
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` (no bias) computing in its input's dtype: the fp32
+    weight is cast to it, as flax's ``nn.Conv(dtype=...)`` casts its
+    kernel; the gradient reaches the fp32 weight through the cast."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight.to(x.dtype), None)
 
 
 def _apply_mask(y: torch.Tensor, extents: torch.Tensor | None) -> torch.Tensor:
@@ -73,16 +109,19 @@ class _FlaxBatchNormTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weight, bias, eps):
+        # a bf16 input is reduced and normalized in fp32 and the output
+        # rounded to bf16 (flax's force_float32_reductions)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         dims = (0, 2, 3)
-        mean = x.mean(dims)
-        var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+        mean = xf.mean(dims)
+        var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
         invstd = torch.rsqrt(var + eps)
         shape = (1, -1, 1, 1)
-        y = (x - mean.view(shape)) * (invstd * weight).view(shape) \
+        y = (xf - mean.view(shape)) * (invstd * weight).view(shape) \
             + bias.view(shape)
         ctx.save_for_backward(x, weight, mean, invstd)
         ctx.eps = eps
-        return y, mean, var
+        return y.to(x.dtype), mean, var
 
     @staticmethod
     def backward(ctx, gy, _gmean, _gvar):
@@ -110,12 +149,19 @@ class BatchNorm(nn.BatchNorm2d):
     average takes ``0.9 * running + 0.1 * batch`` of the mean and of that
     BIASED variance; torch's own module stores the unbiased one, n/(n-1)
     larger.  Eval mode reads the running statistics as ``BatchNorm2d``
-    does.
+    does.  A bf16 input gives a bf16 output, computed in fp32 as flax
+    does: ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, then
+    rounded; the parameters, statistics and their gradients stay fp32.
     """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
-            return super().forward(x)
+            if x.dtype != torch.bfloat16:
+                return super().forward(x)
+            shape = (1, -1, 1, 1)
+            mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+            y = (x.float() - self.running_mean.view(shape)) * mul.view(shape)
+            return (y + self.bias.view(shape)).to(x.dtype)
         y, mean, var = _FlaxBatchNormTrain.apply(x, self.weight, self.bias,
                                                  self.eps)
         with torch.no_grad():
@@ -129,23 +175,25 @@ class BatchNorm(nn.BatchNorm2d):
 class BottleneckBlock(nn.Module):
     """torchvision v1.5 bottleneck (stride on the 3x3), projection skip."""
 
-    def __init__(self, in_ch: int, width: int, out_ch: int, stride: int = 1):
+    def __init__(self, in_ch: int, width: int, out_ch: int, stride: int = 1,
+                 dilation: int = 1):
         super().__init__()
         self.stride = stride
-        self.conv1 = nn.Conv2d(in_ch, width, 1, bias=False)
+        self.conv1 = Conv2d(in_ch, width, 1, bias=False)
         self.bn1 = BatchNorm(width)
-        self.conv2 = nn.Conv2d(width, width, 3, stride=stride, padding=1,
-                               bias=False)
+        self.conv2 = Conv2d(width, width, 3, stride=stride, padding=dilation,
+                            dilation=dilation, bias=False)
         self.bn2 = BatchNorm(width)
-        self.conv3 = nn.Conv2d(width, out_ch, 1, bias=False)
+        self.conv3 = Conv2d(width, out_ch, 1, bias=False)
         self.bn3 = BatchNorm(out_ch)
         self.downsample = None
         if in_ch != out_ch or stride != 1:
             self.downsample = nn.Sequential(
-                nn.Conv2d(in_ch, out_ch, 1, stride=stride, bias=False),
+                Conv2d(in_ch, out_ch, 1, stride=stride, bias=False),
                 BatchNorm(out_ch))
-        # stride-1 identity blocks run as the fused kernel in eval mode
-        self.fusable = self.downsample is None
+        # undilated stride-1 identity blocks run as the fused kernel in
+        # eval mode (the kernel's 3x3 has no dilation)
+        self.fusable = self.downsample is None and dilation == 1
         self._folded = None
         self._folded_key = None
 
@@ -192,18 +240,20 @@ class BasicBlock(nn.Module):
     """torchvision basic block: 3x3 (stride) -> 3x3, projection skip.  It
     has no fused kernel: every mode runs cuDNN."""
 
-    def __init__(self, in_ch: int, width: int, out_ch: int, stride: int = 1):
+    def __init__(self, in_ch: int, width: int, out_ch: int, stride: int = 1,
+                 dilation: int = 1):
         super().__init__()
         self.stride = stride
-        self.conv1 = nn.Conv2d(in_ch, out_ch, 3, stride=stride, padding=1,
-                               bias=False)
+        self.conv1 = Conv2d(in_ch, out_ch, 3, stride=stride, padding=dilation,
+                            dilation=dilation, bias=False)
         self.bn1 = BatchNorm(out_ch)
-        self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1, bias=False)
+        self.conv2 = Conv2d(out_ch, out_ch, 3, padding=dilation,
+                            dilation=dilation, bias=False)
         self.bn2 = BatchNorm(out_ch)
         self.downsample = None
         if in_ch != out_ch or stride != 1:
             self.downsample = nn.Sequential(
-                nn.Conv2d(in_ch, out_ch, 1, stride=stride, bias=False),
+                Conv2d(in_ch, out_ch, 1, stride=stride, bias=False),
                 BatchNorm(out_ch))
 
     def forward(self, x: torch.Tensor, extents: torch.Tensor | None = None):
@@ -218,15 +268,20 @@ class BasicBlock(nn.Module):
 
 
 class ResNet(nn.Module):
-    """ResNet returning the layer4 (stage 5) map, NHWC in and out."""
+    """ResNet returning the layer4 (stage 5) map, NHWC in and out; the map
+    is in ``dtype`` (fp32 or bf16)."""
 
-    def __init__(self, name: str = "resnet50"):
+    def __init__(self, name: str = "resnet50", dilation_block5: bool = False,
+                 stem_s2d: bool = False, dtype=torch.float32):
         super().__init__()
         if name not in RESNET_STAGE_DEPTHS:
             raise ValueError(f"unsupported backbone {name!r}; "
                              f"have {sorted(RESNET_STAGE_DEPTHS)}")
         self.name = name
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.dilation_block5 = dilation_block5
+        self.stem_s2d = stem_s2d  # the same 7x7/2 stem (see the docstring)
+        self.dtype = compute_dtype(dtype)
+        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = BatchNorm(64)
         block, expansion = ((BasicBlock, 1) if name in _BASIC
                             else (BottleneckBlock, 4))
@@ -234,9 +289,13 @@ class ResNet(nn.Module):
         for i, (depth, w) in enumerate(zip(RESNET_STAGE_DEPTHS[name],
                                            (64, 128, 256, 512))):
             blocks = []
+            dilated = i == 3 and dilation_block5
             for j in range(depth):
-                stride = 2 if (i > 0 and j == 0) else 1
-                blocks.append(block(in_ch, w, expansion * w, stride))
+                stride = 2 if (i > 0 and j == 0 and not dilated) else 1
+                # the surgery leaves the first block's 3x3 undilated
+                dilation = 2 if dilated and j > 0 else 1
+                blocks.append(block(in_ch, w, expansion * w, stride,
+                                    dilation))
                 in_ch = expansion * w
             self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
         self.outputdim = in_ch
@@ -246,12 +305,15 @@ class ResNet(nn.Module):
     def forward(self, x: torch.Tensor,
                 valid_hw: torch.Tensor | None = None) -> torch.Tensor:
         """x: [B, H, W, 3] images (zero-padded bottom/right when
-        ``valid_hw`` [B, 2] is given).  Returns [B, h, w, 2048]."""
+        ``valid_hw`` [B, 2] is given).  Returns [B, h, w, 2048] in
+        ``dtype``."""
         if valid_hw is not None and self.training:
             raise ValueError("masked extraction requires eval mode")
         ext = valid_hw
         y = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         y = _apply_mask(y, ext)
+        if self.dtype == torch.bfloat16:  # a float64 copy stays float64
+            y = y.to(self.dtype)
         y = F.relu(self.bn1(self.conv1(y)))
         if ext is not None:
             ext = ceil_half(ext)

@@ -9,6 +9,12 @@ the hand-written kernel of ``ops/gem_head.py`` on CUDA.  ``extract`` reads
 the whiten weight in fp32 (equal to the JAX ``extract`` at the golden
 bars); ``extract_fused`` reads it in bf16, as the Pallas kernel's default.
 The ArcFace classifier weight is a parameter; extraction does not use it.
+
+``dtype`` is the backbone's compute dtype (the JAX field): at bf16 the
+layer4 map is bf16, GeM pools it in fp32, and the whiten projection, the
+classifier and the losses stay fp32 (the JAX model's ``whiten`` Dense is
+fp32 whatever ``dtype``).  ``dilation_block5`` and ``stem_s2d`` are the
+backbone's (``models/backbone.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import torch.nn as nn
 
 from research_image_retrieval_tpu_torch.models.backbone import (
     ResNet,
+    compute_dtype,
     stage_extents,
 )
 from research_image_retrieval_tpu_torch.models.registry import register_model
@@ -36,9 +43,14 @@ class GeMModel(nn.Module):
 
     def __init__(self, backbone_name: str = "resnet50", outputdim: int = 2048,
                  num_classes: int = 81313, p: float = 3.0,
-                 learnable_p: bool = False, s: float = 32.0, m: float = 0.15):
+                 learnable_p: bool = False, s: float = 32.0, m: float = 0.15,
+                 dilation_block5: bool = False, stem_s2d: bool = False,
+                 dtype=torch.float32):
         super().__init__()
-        self.backbone = ResNet(backbone_name)
+        self.dtype = compute_dtype(dtype)
+        self.dilation_block5 = dilation_block5
+        self.backbone = ResNet(backbone_name, dilation_block5=dilation_block5,
+                               stem_s2d=stem_s2d, dtype=self.dtype)
         self.whiten = nn.Linear(self.backbone.outputdim, outputdim)
         self.p = p
         self.gem_p = nn.Parameter(torch.tensor([p])) if learnable_p else None
@@ -67,7 +79,8 @@ class GeMModel(nn.Module):
         if self.training:
             raise ValueError("extraction uses BN running stats: call .eval()")
         fmap = self.backbone(x, valid_hw=valid_hw).contiguous()
-        ext = None if valid_hw is None else stage_extents(valid_hw, 5)
+        ext = (None if valid_hw is None
+               else stage_extents(valid_hw, 5, self.dilation_block5))
         p = self.p if self.gem_p is None else self.gem_p
         return gem_whiten_l2(fmap, self.whiten.weight, self.whiten.bias, p=p,
                              extents=ext, weight_dtype=weight_dtype)
@@ -75,7 +88,8 @@ class GeMModel(nn.Module):
     def extract(self, x: torch.Tensor,
                 valid_hw: torch.Tensor | None = None) -> torch.Tensor:
         """[B, H, W, 3] images (+ optional [B, 2] valid extents of padded
-        buckets) -> [B, D] L2-normalized descriptors, fp32 throughout."""
+        buckets) -> [B, D] L2-normalized fp32 descriptors (the backbone in
+        ``dtype``, the head in fp32 with an fp32 whiten weight)."""
         return self._head(x, valid_hw, torch.float32)
 
     def extract_fused(self, x: torch.Tensor,
@@ -89,5 +103,12 @@ register_model(
     "gem_r50",
     description="ResNet50-GeM global descriptor (reference RetrievalNet.py:327)",
     defaults=dict(backbone_name="resnet50", outputdim=2048, p=3.0, s=32.0,
+                  m=0.15),
+)(GeMModel)
+
+register_model(
+    "gem_r101",
+    description="ResNet101-GeM global descriptor with ArcFace",
+    defaults=dict(backbone_name="resnet101", outputdim=2048, p=3.0, s=32.0,
                   m=0.15),
 )(GeMModel)

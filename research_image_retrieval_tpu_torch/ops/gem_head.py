@@ -3,7 +3,9 @@
 Port of ``research_image_retrieval_tpu/ops/gem_pallas.py``.  On a CUDA
 tensor ``gem_whiten_l2`` launches the hand-written kernel of
 ``csrc/gem_head.cu``; on a CPU tensor it computes the same function with
-``gem_whiten_l2_reference``, its plain PyTorch version.
+``gem_whiten_l2_reference``, its plain PyTorch version.  The map may be
+fp32 or bf16 (a bf16 model's layer4 output); either way it is pooled in
+fp32, as the TPU kernel upcasts its block.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from research_image_retrieval_tpu_torch.utils.device import fp32_precision
 
 __all__ = ["gem_whiten_l2", "gem_whiten_l2_reference"]
 
-_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float]
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float]
              + [ctypes.c_void_p])
 
 
@@ -50,7 +52,8 @@ def _p_on(p: float, device: torch.device) -> torch.Tensor:
 def gem_whiten_l2_reference(fmap, weight, bias, p=3.0, eps=1e-6,
                             valid_hw=None, extents=None,
                             weight_dtype=torch.float32):
-    """Plain version: gem_pool -> ``pooled @ weight.T + bias`` -> L2.
+    """Plain version: gem_pool (fp32, of an fp32 or bf16 map) ->
+    ``pooled @ weight.T + bias`` -> L2.
 
     The weight is rounded to ``weight_dtype`` and read back as fp32, the
     same numerics as the kernel (fp32 accumulation either way).
@@ -83,7 +86,8 @@ def gem_whiten_l2(fmap: torch.Tensor, weight: torch.Tensor,
     """Fused descriptor head.
 
     Args:
-      fmap: [B, H, W, C] fp32 feature map (NHWC, contiguous).
+      fmap: [B, H, W, C] fp32 or bf16 feature map (NHWC, contiguous);
+        any other dtype raises on CUDA.
       weight: [D, C] whiten projection (``nn.Linear.weight`` layout),
         read as ``weight_dtype`` (bf16 by default, as the TPU kernel;
         the main path's ``extract`` passes float32), fp32 accumulation.
@@ -112,14 +116,18 @@ def gem_whiten_l2(fmap: torch.Tensor, weight: torch.Tensor,
     if weight_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"weight_dtype must be float32 or bfloat16, "
                          f"got {weight_dtype}")
-    vec = 4 if weight_dtype == torch.float32 else 8  # 16-byte weight loads
+    if fmap.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"fmap has dtype {fmap.dtype}; the kernel reads "
+                         "fp32 or bf16 maps")
+    # 16-byte loads of weight rows and map pixels
+    vec = 8 if torch.bfloat16 in (weight_dtype, fmap.dtype) else 4
     if C % vec:
         raise ValueError(f"C={C} must be a multiple of {vec} for a "
-                         f"{weight_dtype} weight")
+                         f"{fmap.dtype} map and a {weight_dtype} weight")
     dev = fmap.device
     w = weight.detach().to(weight_dtype).contiguous()
     b = bias.detach().to(torch.float32).contiguous()
-    _check("fmap", fmap, dev, torch.float32, (B, H, W, C))
+    _check("fmap", fmap, dev, fmap.dtype, (B, H, W, C))
     _check("weight", w, dev, weight_dtype, (D, C))
     _check("bias", b, dev, torch.float32, (D,))
     ext = mask = None
@@ -144,7 +152,8 @@ def gem_whiten_l2(fmap: torch.Tensor, weight: torch.Tensor,
     rc = _lib()(fmap.data_ptr(), ptr(ext), ptr(mask), pt.data_ptr(),
                 w.data_ptr(), b.data_ptr(), work.data_ptr(),
                 work.data_ptr() + 4 * B * C, out.data_ptr(),
-                int(weight_dtype == torch.bfloat16), B, H, W, C, D, ks, eps,
+                int(weight_dtype == torch.bfloat16),
+                int(fmap.dtype == torch.bfloat16), B, H, W, C, D, ks, eps,
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gem_head kernel launch failed: cudaError {rc}")

@@ -8,12 +8,17 @@ optional per-image ``extents`` and then zero conv1's output outside each
 image's valid region, as the JAX ``BottleneckBlock`` does on masked
 buckets, so the kernel can serve the bucketed main path.
 
-The kernel takes its products on the tensor cores as three TF32 products
-each (3xTF32: fp32-accurate, never plain TF32).  It reads the (big,
-small) TF32 split of each conv weight in K-major layout
-(``split_weights``), which the wrapper makes from the weights it is given
-and keeps while those tensors live unchanged, so a caller that reuses its
-weights, as the model's blocks do, splits them once.
+Like the TPU kernel, it computes in the dtype of ``x``: fp32 or bf16.
+At fp32 the kernel takes its products on the tensor cores as three TF32
+products each (3xTF32: fp32-accurate, never plain TF32) and reads the
+(big, small) TF32 split of each conv weight in K-major layout
+(``split_weights``).  At bf16 it multiplies bf16 values with fp32
+accumulation, applies the folded BN and the residual in fp32 and rounds
+t1, t2 and the output to bf16, the rounding points of the TPU kernel at
+``dt = bf16``; it reads each weight rounded to bf16 in K-major layout
+(``bf16_weights``).  The wrapper makes either form from the fp32 weights
+it is given and keeps it while those tensors live unchanged, so a caller
+that reuses its weights, as the model's blocks do, converts them once.
 """
 
 from __future__ import annotations
@@ -29,16 +34,15 @@ from research_image_retrieval_tpu_torch.ops import _cuda
 from research_image_retrieval_tpu_torch.ops.masking import hw_mask
 from research_image_retrieval_tpu_torch.utils.device import fp32_precision
 
-__all__ = ["fold_bn", "fused_bottleneck", "fused_bottleneck_reference",
-           "split_weights"]
+__all__ = ["bf16_weights", "fold_bn", "fused_bottleneck",
+           "fused_bottleneck_reference", "split_weights"]
 
 _ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 @functools.cache
-def _lib():
-    lib = _cuda.library("bottleneck")
-    fn = lib.rir_fused_bottleneck
+def _lib(symbol: str = "rir_fused_bottleneck"):
+    fn = getattr(_cuda.library("bottleneck"), symbol)
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
@@ -74,23 +78,36 @@ def split_weights(w1, w2, w3):
             _split(w3.t()))
 
 
+@torch.no_grad()
+def bf16_weights(w1, w2, w3):
+    """The bf16 kernel's weights: w1, w2 (HWIO), w3 rounded to bf16 in
+    K-major layout: [Cw, C], [Cw, 9 * Cw] (K ordered (dy, dx, ci)) and
+    [C, Cw]."""
+    cw = w2.shape[3]
+    return tuple(w.to(torch.bfloat16).contiguous() for w in (
+        w1.t(), w2.permute(3, 0, 1, 2).reshape(cw, -1), w3.t()))
+
+
 _SPLITS: collections.OrderedDict = collections.OrderedDict()
-_SPLITS_KEPT = 32  # weight sets; the model has 12 identity blocks
+_SPLITS_KEPT = 72  # weight sets x forms; R101 has 29 identity blocks
 
 
-def _split_of(w1, w2, w3):
-    """``split_weights(w1, w2, w3)``, made once per set of weight tensors.
+def _split_of(w1, w2, w3, dtype=torch.float32):
+    """The kernel's form of (w1, w2, w3) for activations of ``dtype``
+    (``split_weights`` for fp32, ``bf16_weights`` for bf16), made once per
+    set of weight tensors and form.
 
     An entry holds its three tensors, so no other tensor can take their
     ids while it is kept, and their in-place versions, so an in-place
-    change (``copy_``, an optimizer step) makes the split anew."""
-    key = (id(w1), id(w2), id(w3))
+    change (``copy_``, an optimizer step) makes the form anew."""
+    key = (id(w1), id(w2), id(w3), dtype)
     versions = (w1._version, w2._version, w3._version)
     hit = _SPLITS.get(key)
     if hit is not None and hit[1] == versions:
         _SPLITS.move_to_end(key)
         return hit[2]
-    split = split_weights(w1, w2, w3)
+    make = split_weights if dtype == torch.float32 else bf16_weights
+    split = make(w1, w2, w3)
     _SPLITS[key] = ((w1, w2, w3), versions, split)
     _SPLITS.move_to_end(key)
     while len(_SPLITS) > _SPLITS_KEPT:
@@ -100,22 +117,33 @@ def _split_of(w1, w2, w3):
 
 @fp32_precision()
 def fused_bottleneck_reference(x, w1, sb1, w2, sb2, w3, sb3, extents=None):
-    """Plain version.  x: [B, H, W, C] NHWC; w1 [C, Cw]; w2 [3, 3, Cw, Cw]
-    HWIO; w3 [Cw, C]; sb* [2, C'] from ``fold_bn``; extents [B, 2] or None.
+    """Plain version.  x: [B, H, W, C] NHWC, fp32 or bf16; w1 [C, Cw]; w2
+    [3, 3, Cw, Cw] HWIO; w3 [Cw, C]; sb* [2, C'] fp32 from ``fold_bn``;
+    extents [B, 2] or None.
+
+    In the dtype of ``x``, as the JAX ``fused_bottleneck_reference``: at
+    bf16 the weights are rounded to bf16, the products of the bf16 values
+    are summed in fp32, the affines and the residual are fp32, and t1, t2
+    and the output are rounded to bf16.
     """
-    t = torch.relu((x @ w1) * sb1[0] + sb1[1])
+    dt = x.dtype
+    ct = torch.promote_types(dt, torch.float32)  # float64 stays float64
+    w1, w2, w3 = (w.to(dt).to(ct) for w in (w1, w2, w3))
+    xf = x.to(ct)
+    t = torch.relu((xf @ w1) * sb1[0] + sb1[1]).to(dt)
     if extents is not None:
         t = t * hw_mask(x.shape[1], x.shape[2], extents, dtype=t.dtype)[..., None]
-    t = F.conv2d(t.permute(0, 3, 1, 2), w2.permute(3, 2, 0, 1), padding=1)
-    t = torch.relu(t.permute(0, 2, 3, 1) * sb2[0] + sb2[1])
-    y = (t @ w3) * sb3[0] + sb3[1] + x
-    return torch.relu(y)
+    t = F.conv2d(t.to(ct).permute(0, 3, 1, 2), w2.permute(3, 2, 0, 1),
+                 padding=1)
+    t = torch.relu(t.permute(0, 2, 3, 1) * sb2[0] + sb2[1]).to(dt)
+    y = (t.to(ct) @ w3) * sb3[0] + sb3[1] + xf
+    return torch.relu(y).to(dt)
 
 
-def _check(name, t, device, shape):
+def _check(name, t, device, shape, dtype=torch.float32):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, x on {device}")
-    if t.dtype != (torch.int32 if name == "extents" else torch.float32):
+    if t.dtype != (torch.int32 if name == "extents" else dtype):
         raise ValueError(f"{name} has dtype {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}, "
@@ -128,10 +156,12 @@ def fused_bottleneck(x: torch.Tensor, w1, sb1, w2, sb2, w3, sb3,
                      extents: torch.Tensor | None = None) -> torch.Tensor:
     """Fused stride-1 identity-skip bottleneck, [B, H, W, C] -> same.
 
-    Args as ``fused_bottleneck_reference``.  On CUDA: fp32 only, C and Cw
-    multiples of 64 (every ResNet bottleneck), all operands contiguous on
-    x's device; the weights' TF32 split is made on the first call with
-    these weight tensors and kept (``_split_of``).
+    Args as ``fused_bottleneck_reference``.  On CUDA: x fp32 or bf16 (the
+    kernel's form follows it; any other dtype raises), fp32 weights and
+    affines, C and Cw multiples of 64 (every ResNet bottleneck), all
+    operands contiguous on x's device; the weights' form for x's dtype is
+    made on the first call with these weight tensors and kept
+    (``_split_of``).  A failed launch raises.
     """
     if x.device.type == "cpu":
         return fused_bottleneck_reference(x, w1, sb1, w2, sb2, w3, sb3,
@@ -144,23 +174,27 @@ def fused_bottleneck(x: torch.Tensor, w1, sb1, w2, sb2, w3, sb3,
     Cw = w1.shape[1]
     if C % 64 or Cw % 64:
         raise ValueError(f"C={C} and Cw={Cw} must be multiples of 64")
+    dt = x.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"x has dtype {dt}; the kernel takes fp32 or bf16")
     dev = x.device
-    _check("x", x, dev, (B, H, W, C))
+    _check("x", x, dev, (B, H, W, C), dt)
     _check("w1", w1, dev, (C, Cw))
     _check("sb1", sb1, dev, (2, Cw))
     _check("w2", w2, dev, (3, 3, Cw, Cw))
     _check("sb2", sb2, dev, (2, Cw))
     _check("w3", w3, dev, (Cw, C))
     _check("sb3", sb3, dev, (2, C))
-    k1, k2, k3 = _split_of(w1, w2, w3)
+    k1, k2, k3 = _split_of(w1, w2, w3, dt)
     ext = None
     if extents is not None:
         ext = extents.to(torch.int32).contiguous()
         _check("extents", ext, dev, (B, 2))
-    t1 = torch.empty((B, H, W, Cw), dtype=torch.float32, device=dev)
+    t1 = torch.empty((B, H, W, Cw), dtype=dt, device=dev)
     t2 = torch.empty_like(t1)
     out = torch.empty_like(x)
-    rc = _lib()(
+    rc = _lib("rir_fused_bottleneck" if dt == torch.float32
+              else "rir_fused_bottleneck_bf16")(
         x.data_ptr(), k1.data_ptr(), sb1.data_ptr(), k2.data_ptr(),
         sb2.data_ptr(), k3.data_ptr(), sb3.data_ptr(),
         None if ext is None else ext.data_ptr(), t1.data_ptr(),

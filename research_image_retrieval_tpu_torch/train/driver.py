@@ -10,18 +10,27 @@ generator and data-iterator state, mid-epoch included).  Data: a packed
 ``.rirrec`` record file, the GLDv2 CSV layout, or the synthetic
 procedural classes.
 
-One device (``cfg.device``, default CUDA: raises without a card).  What
-the JAX driver has and this one does not raise instead of running
-something else: ``data_parallel`` / ``model_parallel`` > 1 (multi-GPU is
-ROADMAP Queue 1 item 9), ``teacher=True`` (item 12) and
-``compute_dtype="bfloat16"`` (a bf16 autocast matching the JAX bf16
-backbone; item 8).  Curves are not drawn (``plot_freq``): the driver
-says so once.
+One device (``cfg.device``, default CUDA: raises without a card).
+``compute_dtype="bfloat16"`` builds a model with a ``dtype`` field at
+bf16, as the JAX driver does (an explicit ``model_overrides["dtype"]``
+wins; a model without the field gets a note); fp32 stays the default
+here, as in the JAX driver on every platform but the TPU.  What the JAX
+driver has and this one does not raise instead of running something
+else: ``data_parallel`` / ``model_parallel`` > 1 (multi-GPU is ROADMAP
+Queue 1 item 9) and ``teacher=True`` (item 12).  Curves are not drawn
+(``plot_freq``): the driver says so once.
+
+Resume is exact on the CPU.  On CUDA it is bit-exact only when both the
+interrupted run and the resumed one execute inside
+``utils.profiling.deterministic_mode()`` (which needs
+``CUBLAS_WORKSPACE_CONFIG`` set before the process's first cuBLAS call);
+outside it cuDNN may pick nondeterministic algorithms.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import os
 
 import numpy as np
@@ -37,7 +46,7 @@ from research_image_retrieval_tpu_torch.data.transforms import (
     IMAGENET_MEAN,
     IMAGENET_STD,
 )
-from research_image_retrieval_tpu_torch.models import get_model
+from research_image_retrieval_tpu_torch.models import MODEL_REGISTRY, get_model
 from research_image_retrieval_tpu_torch.train.checkpoint import (
     CheckpointManager,
 )
@@ -65,7 +74,8 @@ from research_image_retrieval_tpu_torch.train.schedule import (
 from research_image_retrieval_tpu_torch.utils.config import TrainConfig
 from research_image_retrieval_tpu_torch.utils.device import resolve_device
 
-__all__ = ["build_datasets", "build_optimizer", "check_config", "train"]
+__all__ = ["build_datasets", "build_optimizer", "check_config",
+           "model_kwargs", "train"]
 
 
 def check_config(cfg: TrainConfig) -> None:
@@ -80,11 +90,25 @@ def check_config(cfg: TrainConfig) -> None:
         raise NotImplementedError(
             "teacher=True: the distillation teacher belongs to the sparse / "
             "hamlet models, not ported yet (ROADMAP Queue 1 item 12)")
-    if cfg.compute_dtype not in ("", "float32"):
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r}: the port trains in fp32; "
-            "a bf16 autocast matching the JAX bf16 backbone is ROADMAP "
-            "Queue 1 item 8's open part")
+    if cfg.compute_dtype not in ("", "float32", "bfloat16"):
+        raise ValueError(f"compute_dtype={cfg.compute_dtype!r}: '', "
+                         "'float32' or 'bfloat16'")
+
+
+def model_kwargs(cfg: TrainConfig) -> dict:
+    """``cfg.model_overrides`` plus the compute dtype, as the JAX driver
+    passes it: ``dtype`` for a model that has the field (an explicit
+    ``model_overrides["dtype"]`` wins), a note for one that has not."""
+    kwargs = dict(cfg.model_overrides)
+    if cfg.compute_dtype in ("", "float32") or "dtype" in kwargs:
+        return kwargs
+    builder = MODEL_REGISTRY[cfg.model].builder
+    if "dtype" in inspect.signature(builder).parameters:
+        kwargs["dtype"] = cfg.compute_dtype
+    else:
+        print(f"note: {cfg.model} has no compute-dtype knob; "
+              f"ignoring compute_dtype={cfg.compute_dtype}")
+    return kwargs
 
 
 def build_datasets(cfg: TrainConfig):
@@ -194,9 +218,10 @@ def train(cfg: TrainConfig, max_steps_per_epoch: int | None = None):
     device = resolve_device(cfg.device)
     train_ds, val_ds, num_classes = build_datasets(cfg)
 
+    kwargs = model_kwargs(cfg)
+
     def new_model():
-        return get_model(cfg.model, num_classes=num_classes,
-                         **cfg.model_overrides)
+        return get_model(cfg.model, num_classes=num_classes, **kwargs)
 
     train_it = ShardedBatchIterator(train_ds, cfg.batch_size, seed=cfg.seed,
                                     num_workers=cfg.num_workers)

@@ -4,8 +4,11 @@ The JAX step is one jitted program under ``jax.value_and_grad``; here the
 forward, ``backward()`` and the optimizer run eagerly on cuDNN, cuBLAS
 and autograd, all inside one ``fp32_precision()`` block: autograd runs
 the backward convolutions after the forward's own block has closed, and
-cuDNN's TF32 default would be back on there.  One device, no mesh: the
-JAX ``mesh``, ``donate`` and ``teacher_table`` arguments are not ported.
+cuDNN's TF32 default would be back on there.  A model built with
+``dtype=bfloat16`` runs its backbone in bf16 (``models/backbone.py``);
+the loss, the gradients of the fp32 parameters and the optimizer stay
+fp32, as in the JAX step.  One device, no mesh: the JAX ``mesh``,
+``donate`` and ``teacher_table`` arguments are not ported.
 """
 
 from __future__ import annotations
@@ -79,8 +82,8 @@ def _to_device(images, labels, device):
 def make_train_step(input_norm=None):
     """``step(state, images, labels) -> (state, metrics)``: uint8 (or
     normalized float) NHWC batches in, normalized on the device with
-    ``input_norm=(mean, std)``; one forward, backward and optimizer step
-    in fp32 (TF32 off throughout).  ``metrics`` are device scalars:
+    ``input_norm=(mean, std)``; one forward, backward and optimizer step,
+    fp32 with TF32 off throughout except a bf16 model's backbone.  ``metrics`` are device scalars:
     ``loss``, ``top1_err``, ``top5_err`` and ``grad_norm`` (raw gradients,
     before clipping).  The state is updated in place and returned."""
     prep = fused_input_norm(input_norm)
@@ -109,7 +112,8 @@ def make_train_step(input_norm=None):
 def make_eval_step(input_norm=None):
     """``step(state, images, labels) -> metrics`` in eval mode (BN
     running statistics, no margin, the fused bottleneck kernel in the
-    identity blocks): ``loss``, ``top1_err``, ``top5_err``."""
+    identity blocks, in its bf16 form for a bf16 model): ``loss``,
+    ``top1_err``, ``top5_err``."""
     prep = fused_input_norm(input_norm)
 
     def step_fn(state: TrainState, images, labels):

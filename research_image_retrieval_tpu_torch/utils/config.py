@@ -1,8 +1,8 @@
 """Training and evaluation settings (port of
 ``research_image_retrieval_tpu/utils/config.py``): ``TrainConfig`` with
 the JAX fields and defaults plus ``device``, the presets of the families
-the port has (``gem_r50``), and ``EvalConfig`` with the fields that the
-ported evaluation driver and ``cli.evaluate`` read.
+the port has (``gem_r50``, ``gem_r101``), and ``EvalConfig`` with the
+fields that the ported evaluation driver and ``cli.evaluate`` read.
 """
 
 from __future__ import annotations
@@ -58,8 +58,9 @@ class TrainConfig:
     data_parallel: int | None = None
     model_parallel: int = 1
 
-    # backbone compute dtype: "" or "float32"; "bfloat16" raises (a bf16
-    # autocast matching the JAX bf16 backbone is not ported yet)
+    # backbone compute dtype of models with a ``dtype`` field: "" (fp32,
+    # the default on CUDA as on every JAX platform but the TPU), "float32"
+    # or "bfloat16"; an explicit model_overrides["dtype"] wins
     compute_dtype: str = ""
 
     # offline LLM-distillation teacher of the distillation models: not
@@ -114,6 +115,17 @@ class EvalConfig:
     pca_whiten: bool = False
     pca_dim: int = 0
     pca_shrinkage: float = 1.0
+    # learned iterative query expansion (index/qe.py); the MLP's weights
+    # come from iqe_checkpoint (.pt or flattened-flax .npz), else its
+    # random init (a warning says so)
+    iqe: bool = False
+    iqe_k: int = 5
+    iqe_iterations: int = 2
+    iqe_gamma: float = 0.6
+    iqe_checkpoint: str | None = None
+    # SuperGlobal-style global-feature reranking (index/superglobal.py)
+    superglobal: bool = False
+    sg_m: int = 100  # shortlist size to refine
 
 
 # Per-model experiment presets (the JAX package's, for the models the
@@ -123,6 +135,7 @@ PRESETS: dict[str, dict[str, Any]] = {
         model="gem_r50", optimizer="sgd", base_lr=0.01, num_epochs=100,
         model_overrides=dict(s=32.0, m=0.15),
     ),
+    "gem_r101": dict(model="gem_r101", optimizer="sgd", base_lr=0.01),
 }
 
 

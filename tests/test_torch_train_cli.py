@@ -176,11 +176,12 @@ def test_train_from_records(tmp_path):
     (dict(data_parallel=2), "Queue 1 item 9"),
     (dict(model_parallel=2), "Queue 1 item 9"),
     (dict(teacher=True), "Queue 1 item 12"),
-    (dict(compute_dtype="bfloat16"), "Queue 1 item 8"),
+    (dict(compute_dtype="float16"), "compute_dtype"),
 ])
 def test_unported_options_raise(tmp_path, monkeypatch, override, match):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises((NotImplementedError, RuntimeError), match=match):
+    with pytest.raises((NotImplementedError, RuntimeError, ValueError),
+                       match=match):
         drv.train(_tiny_cfg(tmp_path, **override))
 
 
@@ -203,4 +204,4 @@ def test_cli_list_presets(capsys):
     from research_image_retrieval_tpu_torch.cli.train import main
 
     assert main(["--list-presets"]) == 0
-    assert capsys.readouterr().out.split() == ["gem_r50"]
+    assert capsys.readouterr().out.split() == ["gem_r101", "gem_r50"]
