@@ -51,7 +51,13 @@ Phases (any failure raises and exits non-zero; there is no fallback):
      (validation and extraction through both kernels' bf16 forms);
   8. gem_r101 and gem_r50 with ``dilation_block5`` at full width: CUDA
      against the CPU path, the phase-4 fixture's img/s and mAP, and the
-     launches per backbone pass (29 and 10).
+     launches per backbone pass (29 and 10);
+  9. the ResNet zoo presets at full width: 9.1 dolg_r101, solar_r101 and
+     delg_r50 as phase 8 (bottleneck / head launches per pass 29 / 0,
+     29 / 0 and 12 / 1); 9.2 ``cli.evaluate --model delg_r50
+     --local-rerank`` on the fixture as a Revisited dataset: its ranks
+     against the direct pipeline's, and every shortlisted pair's inlier
+     count on the card against the CPU's.
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Needs a CUDA device and the repo.
 """
@@ -1182,31 +1188,14 @@ def phase_serving(torch, gh, rb, gpu_model, phase4_map) -> dict:
     return steps
 
 
-def phase_rerank_cli(torch, work, jdir, names, imgs, labels, q_idx, ckpt,
-                     vecs):
-    """6.7: ``cli.evaluate`` with ``--iqe`` (a seeded random-init IQE MLP
-    written as flattened flax params, the ``.npz`` layout a converted JAX
-    checkpoint has) and ``--superglobal`` on the fixture laid out as a
-    Revisited dataset (the JPEGs of 6.1; the first image of each class a
-    query, its box the whole image).  Its E/M/H mAP is held against the
-    same pipeline (``evaluation.driver._rank``) on 6.1's index of the same
-    files: equal within 0.5 points (the two extractions batch the images
-    differently, so cuDNN may sum in other orders)."""
+def _revisited_layout(root, jdir, names, imgs, labels, q_idx) -> list:
+    """Lay the fixture's JPEG files out as a Revisited dataset under
+    ``root`` (``roxford5k/jpg``, ``gnd_roxford5k.pkl``; the first image of
+    each class a query, its box the whole image); returns the gnd."""
     import pickle
 
-    from research_image_retrieval_tpu_torch.cli import evaluate as cli_eval
     from research_image_retrieval_tpu_torch.data import make_synthetic_gnd
-    from research_image_retrieval_tpu_torch.evaluation import (
-        compute_map_and_print,
-    )
-    from research_image_retrieval_tpu_torch.evaluation.driver import _rank
-    from research_image_retrieval_tpu_torch.index import (
-        IterativeQueryExpansion,
-        rank_full,
-    )
-    from research_image_retrieval_tpu_torch.utils.config import EvalConfig
 
-    root = os.path.join(work, "revisited")
     jpg = os.path.join(root, "roxford5k", "jpg")
     os.makedirs(jpg)
     for n in names:
@@ -1219,6 +1208,33 @@ def phase_rerank_cli(torch, work, jdir, names, imgs, labels, q_idx, ckpt,
     with open(os.path.join(root, "roxford5k", "gnd_roxford5k.pkl"), "wb") as f:
         pickle.dump({"imlist": stems, "qimlist": [stems[q] for q in q_idx],
                      "gnd": gnd}, f)
+    return gnd
+
+
+def phase_rerank_cli(torch, work, jdir, names, imgs, labels, q_idx, ckpt,
+                     vecs):
+    """6.7: ``cli.evaluate`` with ``--iqe`` (a seeded random-init IQE MLP
+    written as flattened flax params, the ``.npz`` layout a converted JAX
+    checkpoint has) and ``--superglobal`` on the fixture laid out as a
+    Revisited dataset (the JPEGs of 6.1; the first image of each class a
+    query, its box the whole image).  Its E/M/H mAP is held against the
+    same pipeline (``evaluation.driver._rank``) on 6.1's index of the same
+    files: equal within 0.5 points (the two extractions batch the images
+    differently, so cuDNN may sum in other orders)."""
+    from research_image_retrieval_tpu_torch.cli import evaluate as cli_eval
+    from research_image_retrieval_tpu_torch.evaluation import (
+        compute_map_and_print,
+    )
+    from research_image_retrieval_tpu_torch.evaluation.driver import _rank
+    from research_image_retrieval_tpu_torch.index import (
+        IterativeQueryExpansion,
+        rank_full,
+    )
+    from research_image_retrieval_tpu_torch.utils.config import EvalConfig
+
+    root = os.path.join(work, "revisited")
+    gnd = _revisited_layout(root, jdir, names, imgs, labels, q_idx)
+    stems = [os.path.splitext(n)[0] for n in names]
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(6)
         iqe = IterativeQueryExpansion(vecs.shape[1])
@@ -1849,6 +1865,222 @@ def phase_flagship(torch, gh, rb, smi: str) -> dict:
     return out
 
 
+ZOO = (("dolg_r101", 29, 0, 512), ("solar_r101", 29, 0, 2048),
+       ("delg_r50", 12, 1, 2048))  # model, bottleneck / head per pass, D
+
+
+def phase_zoo(torch, gh, rb, smi: str) -> dict:
+    """Phase 9.1: the ResNet zoo presets at full width and depth, seeded
+    weights (``seeded_init(seed=0)``, 8 classes): dolg_r101, solar_r101
+    and delg_r50.  For each, as phase 8: CUDA against the port's CPU path
+    on two images (ms3, bucket 128) at 1e-4; the phase-4 fixture through
+    ``serving_slice`` twice (the second run warm: img/s on the host
+    clock), its mAP and descriptor width; and each kernel's launches over
+    that run against the backbone passes it made (29 / 29 / 12 bottleneck
+    launches and 0 / 0 / 1 head launches per pass: DOLG's GeM feeds
+    ``fc_t`` and SOLAR L2-normalizes before its whiten, so neither is the
+    head's function).  Returns the models' results and the delg_r50 on
+    the card for 9.2."""
+    from research_image_retrieval_tpu_torch.data import (
+        IMAGENET_MEAN,
+        IMAGENET_STD,
+    )
+    from research_image_retrieval_tpu_torch.index import extract_vectors
+    from research_image_retrieval_tpu_torch.models import (
+        get_model,
+        seeded_init,
+    )
+
+    imgs, labels = serving_fixture(16, 1024)
+    few = [((im.astype(np.float32) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD)
+           for im in procedural_images([(512, 683), (384, 512)], seed=5)]
+    kw = dict(scales=SCALES, bucket=128, batch_size=8, device_scales=True,
+              antialias=False)
+    out, delg = {}, None
+    for name, per_pass, heads, dim in ZOO:
+        cpu_model = get_model(name, num_classes=8)
+        seeded_init(cpu_model, seed=0)
+        cpu_model.eval()
+        gpu_model = copy.deepcopy(cpu_model).cuda().eval()
+        got = extract_vectors(lambda x, v: gpu_model.extract(x, v), few,
+                              device="cuda", **kw)
+        t0 = time.perf_counter()
+        want = extract_vectors(lambda x, v: cpu_model.extract(x, v), few,
+                               device="cpu", **kw)
+        cpu_s = time.perf_counter() - t0
+        err = check_close(f"9.1 {name} cuda vs cpu", torch.from_numpy(got),
+                          torch.from_numpy(want), 0.0, 1e-4)
+        del cpu_model
+        passes = [0]
+        hook = gpu_model.backbone.register_forward_hook(
+            lambda *a: passes.__setitem__(0, passes[0] + 1))
+        serving_slice(gpu_model, imgs, labels, SCALES, bucket=128, k=100,
+                      device="cuda")  # warm: cuDNN plans of every bucket
+        passes[0] = 0
+        _reset_launches(gh, rb)
+        res = serving_slice(gpu_model, imgs, labels, SCALES, bucket=128,
+                            k=100, device="cuda")
+        launches = {"gem_head": gh.gem_whiten_l2.launches,
+                    "bottleneck": rb.fused_bottleneck.launches}
+        hook.remove()
+        if launches != {"gem_head": heads * passes[0],
+                        "bottleneck": per_pass * passes[0]}:
+            raise AssertionError(
+                f"9.1 {name}: launches {launches} over {passes[0]} backbone "
+                f"passes, want {per_pass} bottleneck and {heads} head "
+                "launches per pass")
+        if res["vecs"].shape != (len(imgs), dim):
+            raise AssertionError(f"9.1 {name}: descriptors "
+                                 f"{res['vecs'].shape}, want D = {dim}")
+        img_s = len(imgs) / res["extract_s"]
+        print(f"zoo 9.1 {name}: cuda vs cpu (2 images, ms3, bucket 128) "
+              f"max|err| {err:.3e} (atol 1e-4; cpu {cpu_s:.1f} s); fixture "
+              f"{len(imgs)} images at 1024 px ms3 warm: "
+              f"{res['extract_s']:.2f} s = {img_s:.2f} img/s (host clock); "
+              f"mAP E/M/H {res['mAP']}; D {dim}; launches {launches} over "
+              f"{passes[0]} backbone passes ({per_pass} bottleneck, {heads} "
+              f"head per pass) [{smi}]")
+        out[name] = dict(launches=launches, passes=passes[0], img_s=img_s,
+                         mAP=res["mAP"], max_abs_err=err)
+        if name == "delg_r50":
+            delg = gpu_model
+        else:
+            del gpu_model
+        torch.cuda.empty_cache()
+    return out, delg
+
+
+def _recorded(module, name: str, calls: list):
+    """Replace ``module.name`` by a wrapper that appends (args, result) of
+    each call to ``calls``; returns a function that restores it."""
+    real = getattr(module, name)
+
+    def wrapped(*args, **kw):
+        result = real(*args, **kw)
+        calls.append((args, result))
+        return result
+
+    setattr(module, name, wrapped)
+    return lambda: setattr(module, name, real)
+
+
+def phase_local_rerank(torch, gh, rb, smi: str, model) -> dict:
+    """Phase 9.2: ``cli.evaluate --model delg_r50 --local-rerank`` (ms3)
+    on the phase-4 fixture as JPEG files laid out as a Revisited dataset
+    (as 6.7), the seeded delg_r50 of 9.1 as a ``.pt`` checkpoint.  Its
+    ranks must equal the direct pipeline's (``_local_rerank_ranks`` on
+    the same model, given the CLI run's descriptors, ranks and loaders),
+    and the geometric verification of every shortlisted pair on the card
+    must give the CPU's inlier counts on the same locals and hypotheses
+    (else the differing pairs are printed with how near each came to the
+    2 px threshold).  Prints the mAP before and after the rerank and the
+    rerank's wall time; returns the kernels' launches over the CLI run."""
+    from research_image_retrieval_tpu_torch.cli import evaluate as cli_eval
+    from research_image_retrieval_tpu_torch.evaluation import (
+        compute_map_and_print,
+    )
+    from research_image_retrieval_tpu_torch.evaluation import driver
+    from research_image_retrieval_tpu_torch.index import (
+        geometric_verification_batch,
+        search_topk,
+    )
+
+    enc = _jpeg_encoder()
+    if enc is None:
+        raise AssertionError("9.2 needs a JPEG encoder (OpenCV or PIL) to "
+                             "lay the fixture out as files")
+    work = os.path.join(ROOT, "build", "chip_smoke_zoo")
+    shutil.rmtree(work, ignore_errors=True)
+    jdir = os.path.join(work, "fixture")
+    os.makedirs(jdir)
+    imgs, labels = serving_fixture(16, 1024)
+    names = [f"{i:03d}.jpg" for i in range(len(imgs))]
+    for name, img in zip(names, imgs):
+        with open(os.path.join(jdir, name), "wb") as f:
+            f.write(enc(img))
+    q_idx = np.arange(0, len(imgs), 8)
+    root = os.path.join(work, "revisited")
+    gnd = _revisited_layout(root, jdir, names, imgs, labels, q_idx)
+    ckpt = os.path.join(work, "delg_r50_seed0.pt")
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, ckpt)
+    out = os.path.join(work, "local_rerank.json")
+
+    calls = []
+    restore = _recorded(driver, "_local_rerank_ranks", calls)
+    _reset_launches(gh, rb)
+    t0 = time.perf_counter()
+    try:
+        cli_eval.main(["--model", "delg_r50", "--datasets", "roxford5k",
+                       "--data-root", root, "--checkpoint", ckpt,
+                       "--multiscale", "--local-rerank", "--output", out])
+    finally:
+        restore()
+    cli_s = time.perf_counter() - t0
+    launches = _read_launches(gh, rb, "9.2 cli.evaluate --local-rerank")
+    with open(out) as f:
+        got_map = tuple(json.load(f)["roxford5k"])
+    (_, qvecs, vecs, ranks_in, q_loader, db_loader, cfg, dev), ranks = \
+        calls[0]
+    t0 = time.perf_counter()
+    direct = driver._local_rerank_ranks(model, qvecs, vecs, ranks_in,
+                                        q_loader, db_loader, cfg, "cuda")
+    torch.cuda.synchronize()
+    rerank_s = time.perf_counter() - t0
+    if not np.array_equal(direct, ranks):
+        raise AssertionError(
+            f"9.2 cli.evaluate --local-rerank ranks differ from the direct "
+            f"pipeline's on {int((direct != ranks).sum())} entries")
+    before = compute_map_and_print("roxford5k", "global", "test", ranks_in,
+                                   gnd, kappas=[1, 5, 10])
+    after = compute_map_and_print("roxford5k", "global", "test", ranks, gnd,
+                                  kappas=[1, 5, 10])
+    if tuple(after) != got_map:
+        raise AssertionError(f"9.2 CLI mAP {got_map} != its ranks' {after}")
+
+    # every shortlisted pair verified on the card and on the CPU
+    k = min(cfg.rerank_k, vecs.shape[0])
+    _, indices = search_topk(qvecs, vecs, k=k, device="cuda")
+    qd, qxy = driver.local_features(model, q_loader, np.arange(len(qvecs)),
+                                    cfg.lr_top_attn, cfg.rerank_imsize,
+                                    "cuda")
+    union = np.unique(indices)
+    gd, gxy = driver.local_features(model, db_loader, union, cfg.lr_top_attn,
+                                    cfg.rerank_imsize, "cuda")
+    qids = np.repeat(np.arange(len(qvecs)), k)
+    gids = np.searchsorted(union, indices.reshape(-1))
+    pair = (qd[qids], qxy[qids], gd[gids], gxy[gids])
+    t0 = time.perf_counter()
+    on_card, margin = geometric_verification_batch(*pair, device="cuda",
+                                                   margins=True)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu, cpu_margin = geometric_verification_batch(*pair, device="cpu",
+                                                      margins=True)
+    cpu_s = time.perf_counter() - t0
+    bad = np.nonzero(on_card != on_cpu)[0]
+    for i in bad:
+        print(f"9.2 pair {i} (query {qids[i]}, gallery {union[gids[i]]}): "
+              f"card {on_card[i]:.0f} inliers, cpu {on_cpu[i]:.0f}; nearest "
+              f"|err^2 - 4| card {margin[i]:.3e}, cpu {cpu_margin[i]:.3e}")
+    if len(bad):
+        raise AssertionError(f"9.2: inlier counts differ on {len(bad)} of "
+                             f"{len(on_card)} pairs between card and CPU")
+    print(f"zoo 9.2 cli.evaluate --model delg_r50 --multiscale --local-rerank "
+          f"on the fixture as a Revisited dataset ({len(imgs)} images, "
+          f"{len(q_idx)} queries, top {k}, {qd.shape[1]} locals each at "
+          f"{cfg.rerank_imsize} px) in {cli_s:.1f} s: mAP E/M/H before the "
+          f"rerank {tuple(before)}, after {tuple(after)}; ranks == the direct "
+          f"pipeline's (its rerank {rerank_s:.2f} s wall); {len(on_card)} "
+          f"pairs verified on the card ({card_s:.3f} s) == the CPU "
+          f"({cpu_s:.2f} s), inliers {int(on_card.min())}-"
+          f"{int(on_card.max())}, nearest |err^2 - 4| {margin.min():.3e}; "
+          f"launches {launches} [{smi}]")
+    shutil.rmtree(work, ignore_errors=True)
+    return dict(launches=launches, before=before, after=after, cli_s=cli_s,
+                rerank_s=rerank_s)
+
+
 def main() -> int:
     # cuBLAS reads this when the process makes its first handle; 7.2's
     # deterministic_mode() needs it (utils/profiling.py)
@@ -2001,6 +2233,14 @@ def main() -> int:
     flagship = phase_flagship(torch, gh, rb, smi)
     print(f"flagship phase: {time.perf_counter() - t0:.1f} s")
 
+    # -- 9: the ResNet zoo and DELG's local-feature rerank ----------------
+    t0 = time.perf_counter()
+    zoo, delg = phase_zoo(torch, gh, rb, smi)
+    rerank = phase_local_rerank(torch, gh, rb, smi, delg)
+    del delg
+    torch.cuda.empty_cache()
+    print(f"zoo phase: {time.perf_counter() - t0:.1f} s [{smi}]")
+
     src = "research_image_retrieval_tpu_torch/csrc/"
     replaces = {
         "gem_head": "research_image_retrieval_tpu/ops/gem_pallas.py:84",
@@ -2017,7 +2257,11 @@ def main() -> int:
                         "7.3 trained-weights extraction":
                             trained["launches"][name]},
                     flagship_launches={k: v["launches"][name]
-                                       for k, v in flagship.items()})
+                                       for k, v in flagship.items()},
+                    zoo_launches={
+                        **{k: v["launches"][name] for k, v in zoo.items()},
+                        "9.2 cli.evaluate --local-rerank":
+                            rerank["launches"][name]})
                for name in ("gem_head", "bottleneck")]
     # the bf16 forms: their main path is a bf16 model's (7.3-bf16), its
     # extraction counted as ``launches``, its validation beside it

@@ -1,9 +1,12 @@
 """Evaluation CLI: extract + rank + Revisited protocol mAP
 (port of ``research_image_retrieval_tpu/cli/evaluate.py`` with the flags
 of what the port has: multiscale, host scales, alpha-QE, PCA whitening,
-the learned IQE and SuperGlobal reranking; CVNet, local reranking and the
-split DCT decode are not ported yet).  ``--iqe-checkpoint`` reads a
-``.pt`` state dict or an ``.npz`` of flattened flax params, not orbax.
+the learned IQE, SuperGlobal and DELG's local-feature geometric
+reranking; CVNet reranking and the split DCT decode are not ported yet).
+``--iqe-checkpoint`` reads a ``.pt`` state dict or an ``.npz`` of
+flattened flax params, not orbax.  ``--model`` takes any registry or
+Table-1 name (``gem_r50``, ``dolg_r101``, ``R101-SOLAR``, ``delg_r50``
+...); ``--local-rerank`` needs a delg model.
 A dataset missing under ``--data-root`` falls back to the synthetic
 fixture and says so.
 
@@ -11,6 +14,10 @@ fixture and says so.
         --model gem_r50 --datasets roxford5k rparis6k \
         --data-root /data/revisited --checkpoint gem_r50.pt \
         --multiscale --alpha-qe [--device cpu]
+
+    python -m research_image_retrieval_tpu_torch.cli.evaluate \
+        --model delg_r50 --datasets roxford5k --data-root /data/revisited \
+        --local-rerank --rerank-k 20 [--device cpu]
 """
 
 from __future__ import annotations
@@ -52,6 +59,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--iqe-gamma", type=float, default=0.6)
     p.add_argument("--iqe-checkpoint", default=None,
                    help=".pt state dict or .npz of flattened flax params")
+    p.add_argument("--local-rerank", action="store_true",
+                   help="DELG local-feature affine-RANSAC reranking of the "
+                        "top --rerank-k (needs a delg model)")
+    p.add_argument("--lr-top-attn", type=int, default=128,
+                   help="highest-attention locals kept per image")
+    p.add_argument("--rerank-k", type=int, default=20)
+    p.add_argument("--rerank-blend", type=float, default=0.5,
+                   help="weight of the first-stage score in the blend")
+    p.add_argument("--rerank-imsize", type=int, default=224,
+                   help="square side of the rerank's local extraction")
     p.add_argument("--output", default=None, help="write results JSON here")
     p.add_argument("--output-csv", default=None,
                    help="write a combined CSV (dataset, easy, medium, hard)")
@@ -87,6 +104,11 @@ def main(argv=None):
         iqe_checkpoint=args.iqe_checkpoint,
         superglobal=args.superglobal,
         sg_m=args.sg_m,
+        local_rerank=args.local_rerank,
+        lr_top_attn=args.lr_top_attn,
+        rerank_k=args.rerank_k,
+        rerank_blend=args.rerank_blend,
+        rerank_imsize=args.rerank_imsize,
     )
     results = evaluate(cfg, device=args.device)
     if args.output:

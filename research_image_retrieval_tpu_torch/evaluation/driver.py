@@ -2,7 +2,13 @@
 (port of ``research_image_retrieval_tpu/evaluation/driver.py``: model
 loading, ``evaluate`` and ``evaluate_synthetic`` with the JAX pipeline's
 order: PCA whitening, alpha-QE, the learned IQE or a plain rank, then
-SuperGlobal reranking; CVNet and local reranking are not ported yet).
+SuperGlobal reranking, then (``evaluate``) DELG's local-feature
+geometric rerank; CVNet reranking is not ported yet).
+
+The local rerank feeds the model ImageNet-normalized square images
+whatever the loaders yield: with ``device_scales`` the loaders yield raw
+uint8, which the JAX driver resizes and passes on un-normalized (0-255);
+the port normalizes them first, as the host-scales path's items are.
 
 The IQE MLP's weights come from ``EvalConfig.iqe_checkpoint``: a ``.pt``
 state dict of ``index.qe.IterativeQueryExpansion`` or an ``.npz`` of its
@@ -36,6 +42,7 @@ from research_image_retrieval_tpu_torch.data import (
     SyntheticRetrievalDataset,
     make_synthetic_gnd,
 )
+from research_image_retrieval_tpu_torch.data.transforms import normalize
 from research_image_retrieval_tpu_torch.evaluation.revisited import (
     compute_map_and_print,
 )
@@ -43,8 +50,11 @@ from research_image_retrieval_tpu_torch.index import (
     IterativeQueryExpansion,
     alpha_query_expansion,
     extract_vectors,
+    geometric_verification_batch,
     iqe_from_flax,
     rank_full,
+    rerank_shortlist_batched,
+    resize_bilinear_np,
     search_topk,
     superglobal_rerank,
 )
@@ -63,7 +73,7 @@ from research_image_retrieval_tpu_torch.utils.config import EvalConfig
 from research_image_retrieval_tpu_torch.utils.device import resolve_device
 
 __all__ = ["EvalConfig", "evaluate", "evaluate_synthetic", "load_checkpoint",
-           "load_iqe"]
+           "load_iqe", "local_features"]
 
 
 def _unflatten(flat) -> dict:
@@ -91,12 +101,13 @@ def load_checkpoint(path: str) -> tuple[dict, bool]:
             raise ValueError(f"{path}: no 'params/...' keys "
                              f"(keys: {sorted(variables)})")
         sd = from_jax_variables(variables)
-        return sd, "whiten.weight" not in sd
+        return sd, all(k.startswith("backbone.") for k in sd)
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(sd.get("model"), dict):  # a trainer checkpoint
         sd = sd["model"]
-    if "whiten.weight" in sd:
-        return sd, False
+    if any(k.startswith("backbone.") for k in sd) and \
+            not all(k.startswith("backbone.") for k in sd):
+        return sd, False  # a whole model: backbone and head
     return {f"backbone.{k}": v
             for k, v in load_torchvision_resnet(sd).items()}, True
 
@@ -105,28 +116,31 @@ def _load_model(cfg: EvalConfig, device="cuda", num_classes: int = 81313):
     """The configured model in eval mode on ``device``.  Weights come from
     ``cfg.checkpoint`` (the classifier's size from the checkpoint's, when
     it has one), else from ``seeded_init(seed=0)``; a backbone-only
-    checkpoint keeps the seeded whiten projection."""
+    checkpoint keeps the seeded head."""
     dev = resolve_device(device)
     overrides = dict(cfg.model_overrides)
     sd, backbone_only = (load_checkpoint(cfg.checkpoint) if cfg.checkpoint
                          else (None, False))
-    if sd is not None and "classifier_w" in sd:
-        overrides.setdefault("num_classes", int(sd["classifier_w"].shape[0]))
+    for key in ("classifier_w", "classifier.weight"):  # ArcFace, Linear
+        if sd is not None and key in sd:
+            overrides.setdefault("num_classes", int(sd[key].shape[0]))
     overrides.setdefault("num_classes", num_classes)
     model = get_model(cfg.model, **overrides)
     seeded_init(model, seed=0)
     if sd is not None:
         missing, unexpected = model.load_state_dict(sd, strict=False)
-        allowed = {"classifier_w"} | ({"whiten.weight", "whiten.bias"}
-                                      if backbone_only else set())
+        allowed = {"classifier_w", "classifier.weight", "classifier.bias"}
+        if backbone_only:
+            allowed |= {k for k in model.state_dict()
+                        if not k.startswith("backbone.")}
         if unexpected or set(missing) - allowed:
             raise ValueError(
                 f"checkpoint {cfg.checkpoint} does not fit {cfg.model}: "
                 f"missing {sorted(set(missing) - allowed)}, unexpected "
                 f"{sorted(unexpected)}")
         if backbone_only:
-            print(f">> {cfg.checkpoint}: backbone only; the whiten "
-                  "projection keeps its seeded init")
+            print(f">> {cfg.checkpoint}: backbone only; the head keeps "
+                  "its seeded init")
     return model.to(dev).eval()
 
 
@@ -230,6 +244,73 @@ def _rank(qvecs, vecs, cfg: EvalConfig, device) -> np.ndarray:
     return ranks
 
 
+def _square_images(loader, idxs, size: int) -> np.ndarray:
+    """[len(idxs), size, size, 3] float32 batch of the loader's items,
+    bilinear-resized; a raw uint8 item is normalized first, as the
+    loader's float items are."""
+    out = np.empty((len(idxs), size, size, 3), np.float32)
+    for j, i in enumerate(idxs):
+        img = np.asarray(loader[int(i)])
+        if img.dtype == np.uint8:
+            img = normalize(img.astype(np.float32) / 255.0, IMAGENET_MEAN,
+                            IMAGENET_STD)
+        out[j] = resize_bilinear_np(img, size, size)
+    return out
+
+
+def local_features(model, loader, ids, top: int, size: int, device):
+    """(descriptors [n, top, D], coordinates [n, top, 2]) of the loader's
+    images ``ids``: ``model.extract_local`` of ``size`` square images, 8
+    at a time, each image's ``top`` highest-attention cells with their
+    (row, col) on the local grid."""
+    descs, coords = [], []
+    with torch.no_grad():
+        for lo in range(0, len(ids), 8):
+            chunk = ids[lo:lo + 8]
+            imgs = torch.from_numpy(_square_images(loader, chunk, size))
+            lf, att = (t.cpu().numpy()
+                       for t in model.extract_local(imgs.to(device)))
+            grid = int(round(lf.shape[1] ** 0.5))  # square in, square grid
+            yy, xx = np.meshgrid(np.arange(grid), np.arange(grid),
+                                 indexing="ij")
+            cells = np.stack([yy.ravel(), xx.ravel()], 1).astype(np.float32)
+            for b in range(len(chunk)):
+                keep = np.argsort(-att[b])[:top]
+                descs.append(lf[b][keep])
+                coords.append(cells[keep])
+    return np.stack(descs), np.stack(coords)
+
+
+def _local_rerank_ranks(model, qvecs, vecs, ranks, q_loader, db_loader,
+                        cfg: EvalConfig, device):
+    """DELG local-feature geometric rerank of each query's top
+    ``rerank_k``: locals of the queries and of the union of shortlisted
+    gallery images, every pair's affine-RANSAC inlier count on ``device``
+    (``geometric_verification_batch``) over ``lr_top_attn`` blended with
+    the first-stage score, the shortlist reordered ahead of the rest."""
+    if not hasattr(model, "extract_local"):
+        raise ValueError(
+            f"--local-rerank needs a model exposing extract_local (the "
+            f"delg family); {cfg.model} does not")
+    k = min(cfg.rerank_k, vecs.shape[0])
+    scores, indices = search_topk(qvecs, vecs, k=k, device=device)
+    qd, qxy = local_features(model, q_loader, np.arange(len(qvecs)),
+                             cfg.lr_top_attn, cfg.rerank_imsize, device)
+    union = np.unique(indices.reshape(-1))
+    gd, gxy = local_features(model, db_loader, union, cfg.lr_top_attn,
+                             cfg.rerank_imsize, device)
+
+    def scorer(qids, gids):
+        inliers = geometric_verification_batch(
+            qd[qids], qxy[qids], gd[gids], gxy[gids], device=device)
+        return inliers / float(cfg.lr_top_attn)
+
+    _, new_local = rerank_shortlist_batched(
+        scores, np.searchsorted(union, indices), scorer,
+        blend=cfg.rerank_blend)
+    return _splice_ranks(ranks, union[new_local])
+
+
 def evaluate(cfg: EvalConfig, device="cuda") -> dict:
     """Evaluate on the configured Revisited datasets on ``device``;
     returns ``{dataset: (E, M, H)}`` mAP in percent."""
@@ -265,6 +346,9 @@ def evaluate(cfg: EvalConfig, device="cuda") -> dict:
             if cfg.alpha_qe:
                 qvecs = _expand(qvecs, vecs, cfg, dev)
             ranks = _rank(qvecs, vecs, cfg, dev)
+            if cfg.local_rerank:
+                ranks = _local_rerank_ranks(model, qvecs, vecs, ranks,
+                                            q_loader, db_loader, cfg, dev)
             results[dataset] = compute_map_and_print(
                 dataset, "global", "test", ranks, ds.gnd,
                 kappas=list(cfg.kappas))

@@ -8,6 +8,13 @@ from research_image_retrieval_tpu_torch.index.qe import (
     alpha_query_expansion,
     iqe_from_flax,
 )
+from research_image_retrieval_tpu_torch.index.rerank import (
+    geometric_verification_batch,
+    geometric_verification_score,
+    mutual_nn_matches,
+    rerank_shortlist,
+    rerank_shortlist_batched,
+)
 from research_image_retrieval_tpu_torch.index.search import (
     cosine_similarity,
     rank_full,
@@ -20,5 +27,7 @@ from research_image_retrieval_tpu_torch.index.superglobal import (
 
 __all__ = ["IterativeQueryExpansion", "alpha_query_expansion",
            "cosine_similarity", "extract_vectors", "gem_aggregate",
-           "iqe_from_flax", "multiscale_descriptor", "rank_full",
+           "geometric_verification_batch", "geometric_verification_score",
+           "iqe_from_flax", "multiscale_descriptor", "mutual_nn_matches",
+           "rank_full", "rerank_shortlist", "rerank_shortlist_batched",
            "resize_bilinear_np", "search_topk", "superglobal_rerank"]

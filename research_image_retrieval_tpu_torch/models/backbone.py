@@ -30,7 +30,11 @@ dilated identity blocks run the module form, since the kernel has no
 dilation.  ``stem_s2d`` is accepted and computes the plain 7x7/2 stem:
 the JAX space-to-depth form is the same arithmetic rearranged for the
 TPU's matrix unit, with the same ``conv1`` parameter.
-``stride_on_conv1`` (dolg's scratch backbone) is not ported.
+``stride_on_conv1`` puts each stride-2 bottleneck's stride on its first
+1x1 instead of its 3x3 (the MSRA / pycls placement of dolg's scratch
+backbone); the identity blocks, and so the kernel, are the same.
+``out_stages`` selects the stage taps (2 = layer1 ... 5 = layer4): one
+stage returns its map, several return ``{stage: map}``.
 """
 
 from __future__ import annotations
@@ -51,7 +55,8 @@ from research_image_retrieval_tpu_torch.ops.resblock import (
 from research_image_retrieval_tpu_torch.utils.device import fp32_precision
 
 __all__ = ["BasicBlock", "BatchNorm", "BottleneckBlock", "Conv2d",
-           "RESNET_STAGE_DEPTHS", "ResNet", "compute_dtype", "stage_extents"]
+           "RESNET_STAGE_DEPTHS", "ResNet", "compute_dtype", "nchw_conv",
+           "stage_extents", "train_mode"]
 
 RESNET_STAGE_DEPTHS = {
     "resnet18": (2, 2, 2, 2),
@@ -81,6 +86,24 @@ def compute_dtype(dtype) -> torch.dtype:
     if dt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute dtype {dtype!r}: float32 or bfloat16")
     return dt
+
+
+def train_mode(module: nn.Module, train: bool | None = None) -> bool:
+    """``train`` (default: the module's mode), which must be the module's
+    mode: batch norm reads batch statistics in train mode and the running
+    ones in eval mode, and extraction (``train=False``) needs the latter."""
+    train = module.training if train is None else train
+    if train != module.training:
+        raise ValueError(f"train={train} with the module in "
+                         f"{'train' if module.training else 'eval'} mode: "
+                         "call .train() or .eval() first")
+    return train
+
+
+def nchw_conv(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """An NCHW module (a head's 1x1 convolution) applied to an NHWC map;
+    NHWC out.  Both permutes are views (channels_last)."""
+    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
 class Conv2d(nn.Conv2d):
@@ -173,15 +196,18 @@ class BatchNorm(nn.BatchNorm2d):
 
 
 class BottleneckBlock(nn.Module):
-    """torchvision v1.5 bottleneck (stride on the 3x3), projection skip."""
+    """Bottleneck with a projection skip: torchvision v1.5 (stride on the
+    3x3) or, with ``stride_on_conv1``, MSRA / pycls (stride on the first
+    1x1)."""
 
     def __init__(self, in_ch: int, width: int, out_ch: int, stride: int = 1,
-                 dilation: int = 1):
+                 dilation: int = 1, stride_on_conv1: bool = False):
         super().__init__()
         self.stride = stride
-        self.conv1 = Conv2d(in_ch, width, 1, bias=False)
+        s1, s2 = (stride, 1) if stride_on_conv1 else (1, stride)
+        self.conv1 = Conv2d(in_ch, width, 1, stride=s1, bias=False)
         self.bn1 = BatchNorm(width)
-        self.conv2 = Conv2d(width, width, 3, stride=stride, padding=dilation,
+        self.conv2 = Conv2d(width, width, 3, stride=s2, padding=dilation,
                             dilation=dilation, bias=False)
         self.bn2 = BatchNorm(width)
         self.conv3 = Conv2d(width, out_ch, 1, bias=False)
@@ -228,6 +254,9 @@ class BottleneckBlock(nn.Module):
         identity = x
         y = F.relu(self.bn1(self.conv1(x)))
         # conv1 + BN leaks bias into the pad region: re-zero before the 3x3
+        # (a strided conv1 has halved the extents first)
+        if extents is not None and self.conv1.stride[0] == 2:
+            extents = ceil_half(extents)
         y = _apply_mask(y, extents)
         y = F.relu(self.bn2(self.conv2(y)))
         y = self.bn3(self.conv3(y))
@@ -268,11 +297,12 @@ class BasicBlock(nn.Module):
 
 
 class ResNet(nn.Module):
-    """ResNet returning the layer4 (stage 5) map, NHWC in and out; the map
-    is in ``dtype`` (fp32 or bf16)."""
+    """ResNet returning its ``out_stages`` taps (default: the layer4 map),
+    NHWC in and out; the maps are in ``dtype`` (fp32 or bf16)."""
 
     def __init__(self, name: str = "resnet50", dilation_block5: bool = False,
-                 stem_s2d: bool = False, dtype=torch.float32):
+                 stem_s2d: bool = False, dtype=torch.float32,
+                 out_stages=(5,), stride_on_conv1: bool = False):
         super().__init__()
         if name not in RESNET_STAGE_DEPTHS:
             raise ValueError(f"unsupported backbone {name!r}; "
@@ -281,10 +311,12 @@ class ResNet(nn.Module):
         self.dilation_block5 = dilation_block5
         self.stem_s2d = stem_s2d  # the same 7x7/2 stem (see the docstring)
         self.dtype = compute_dtype(dtype)
+        self.out_stages = tuple(out_stages)
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = BatchNorm(64)
         block, expansion = ((BasicBlock, 1) if name in _BASIC
                             else (BottleneckBlock, 4))
+        extra = {} if name in _BASIC else {"stride_on_conv1": stride_on_conv1}
         in_ch = 64
         for i, (depth, w) in enumerate(zip(RESNET_STAGE_DEPTHS[name],
                                            (64, 128, 256, 512))):
@@ -295,18 +327,19 @@ class ResNet(nn.Module):
                 # the surgery leaves the first block's 3x3 undilated
                 dilation = 2 if dilated and j > 0 else 1
                 blocks.append(block(in_ch, w, expansion * w, stride,
-                                    dilation))
+                                    dilation, **extra))
                 in_ch = expansion * w
             self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
-        self.outputdim = in_ch
+        self.outputdim = in_ch  # layer4's channels
+        self.outputdim_block4 = in_ch // 2  # layer3's
         self.to(memory_format=torch.channels_last)
 
     @fp32_precision()
-    def forward(self, x: torch.Tensor,
-                valid_hw: torch.Tensor | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, valid_hw: torch.Tensor | None = None):
         """x: [B, H, W, 3] images (zero-padded bottom/right when
-        ``valid_hw`` [B, 2] is given).  Returns [B, h, w, 2048] in
-        ``dtype``."""
+        ``valid_hw`` [B, 2] is given).  Returns the [B, h, w, C] map of the
+        one stage in ``out_stages`` (layer4: [B, h, w, 2048]), or
+        ``{stage: map}`` for several, in ``dtype``."""
         if valid_hw is not None and self.training:
             raise ValueError("masked extraction requires eval mode")
         ext = valid_hw
@@ -322,9 +355,13 @@ class ResNet(nn.Module):
         y = F.max_pool2d(y, 3, stride=2, padding=1)
         if ext is not None:
             ext = ceil_half(ext)
+        taps = {}
         for i in range(4):
             for block in getattr(self, f"layer{i + 1}"):
                 y = block(y, extents=ext)
                 if ext is not None and block.stride == 2:
                     ext = ceil_half(ext)
-        return y.permute(0, 2, 3, 1)
+            taps[i + 2] = y.permute(0, 2, 3, 1)
+        if len(self.out_stages) == 1:
+            return taps[self.out_stages[0]]
+        return {s: taps[s] for s in self.out_stages}

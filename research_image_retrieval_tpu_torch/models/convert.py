@@ -1,14 +1,19 @@
 """Weight bridge into the port's models.
 
 * ``from_jax_variables``: flax ``{"params", "batch_stats"}`` of the JAX
-  ``ResNet`` or ``GeMModel`` (as numpy arrays) -> the port's state dict.
-  The inverse of the JAX ``convert_torch_resnet``: conv kernels HWIO ->
-  OIHW, BN ``scale/bias/mean/var`` -> ``weight/bias/running_mean/
-  running_var``, the Dense ``whiten.kernel [C, D]`` -> Linear
-  ``weight [D, C]``, and block names ``layer{i}_{j}`` -> ``layer{i}.{j}``.
+  ``ResNet`` or of a model over one (``GeMModel``, ``DOLGModel``,
+  ``SOLARModel``, ``DELGModel``; as numpy arrays) -> the port's state
+  dict.  The inverse of the JAX ``convert_torch_resnet`` for the
+  backbone (conv kernels HWIO -> OIHW, BN ``scale/bias/mean/var`` ->
+  ``weight/bias/running_mean/running_var``, ``layer{i}_{j}`` ->
+  ``layer{i}.{j}``); a head keeps its flax names, its Dense kernels
+  ``[C, D]`` -> Linear ``weight [D, C]`` and its convolutions as above.
 * ``load_torchvision_resnet``: a torchvision-layout ResNet state dict
   (optionally under a ``backbone.`` prefix) -> the port's ``ResNet``
-  state dict; the names already agree.
+  state dict; the names already agree.  ``load_pycls_resnet`` (the
+  reference's scratch DOLG backbone, for ``stride_on_conv1``) and
+  ``load_features_resnet`` (a Caffe ``nn.Sequential`` ResNet) rename
+  their layouts' keys to torchvision's first.
 * ``seeded_init``: fills every parameter and buffer of a module from one
   seeded ``torch.Generator``, at scales that keep a deep ResNet's
   activations finite and O(1), for runs that need random but
@@ -20,13 +25,14 @@
 from __future__ import annotations
 
 import math
+import re
 
 import numpy as np
 import torch
 import torch.nn as nn
 
-__all__ = ["from_jax_variables", "load_torchvision_resnet", "seeded_init",
-           "training_init"]
+__all__ = ["from_jax_variables", "load_features_resnet", "load_pycls_resnet",
+           "load_torchvision_resnet", "seeded_init", "training_init"]
 
 # std of a unit normal truncated to [-2, 2], by which flax's
 # ``lecun_normal`` (a truncated normal) divides its scale
@@ -67,19 +73,40 @@ def _resnet_from_flax(params: dict, stats: dict, prefix: str) -> dict:
     return sd
 
 
+def _heads_from_flax(params: dict, stats: dict, prefix: str, sd: dict):
+    """A model's non-backbone flax modules under their flax names: Dense
+    and Conv (``kernel`` [+ ``bias``]), BatchNorm (``scale``/``bias`` +
+    the stats), submodules recursively, and bare arrays
+    (``classifier_w``, ``gem_p``) as they are."""
+    for name, p in params.items():
+        key = prefix + name
+        if not isinstance(p, dict):
+            sd[key] = _t(p)
+        elif "kernel" in p:
+            k = np.asarray(p["kernel"])
+            sd[f"{key}.weight"] = _t(np.transpose(k, (3, 2, 0, 1))
+                                     if k.ndim == 4 else k.T)
+            if "bias" in p:
+                sd[f"{key}.bias"] = _t(p["bias"])
+        elif "scale" in p:
+            sd[f"{key}.weight"] = _t(p["scale"])
+            sd[f"{key}.bias"] = _t(p["bias"])
+            sd[f"{key}.running_mean"] = _t(stats[name]["mean"])
+            sd[f"{key}.running_var"] = _t(stats[name]["var"])
+        else:
+            _heads_from_flax(p, stats.get(name, {}), f"{key}.", sd)
+
+
 def from_jax_variables(variables: dict) -> dict:
-    """Port state dict from flax variables of ``ResNet`` or ``GeMModel``."""
+    """Port state dict from flax variables of ``ResNet`` or of a model
+    whose backbone is one (``params["backbone"]``)."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     if "backbone" not in params:  # a bare ResNet
         return _resnet_from_flax(params, stats, "")
     sd = _resnet_from_flax(params["backbone"], stats["backbone"], "backbone.")
-    sd["whiten.weight"] = _t(np.asarray(params["whiten"]["kernel"]).T)
-    sd["whiten.bias"] = _t(params["whiten"]["bias"])
-    if "classifier_w" in params:
-        sd["classifier_w"] = _t(params["classifier_w"])
-    if "gem_p" in params:
-        sd["gem_p"] = _t(params["gem_p"])
+    _heads_from_flax({k: v for k, v in params.items() if k != "backbone"},
+                     stats, "", sd)
     return sd
 
 
@@ -98,6 +125,50 @@ def load_torchvision_resnet(state_dict: dict) -> dict:
             continue
         out[k] = torch.as_tensor(v).detach().to("cpu", torch.float32).clone()
     return out
+
+
+_PYCLS = {"a": "conv1", "a_bn": "bn1", "b": "conv2", "b_bn": "bn2",
+          "c": "conv3", "c_bn": "bn3"}
+
+
+def load_pycls_resnet(state_dict: dict) -> dict:
+    """A pycls-layout ResNet (``stem.{conv,bn}``, ``s{i}.b{j}.f.{a,a_bn,
+    b,b_bn,c,c_bn}``, ``s{i}.b{j}.{proj,bn}`` on shape-changing blocks;
+    the reference's scratch DOLG backbone) -> the port's ``ResNet`` state
+    dict.  pycls strides the first 1x1: load it into a model built with
+    ``stride_on_conv1=True`` (``dolg_r101_scratch``).  Other keys are
+    dropped."""
+    out = {}
+    for k, v in state_dict.items():
+        parts = k.split(".")
+        if parts[0] == "stem" and parts[1] in ("conv", "bn"):
+            dst = {"conv": "conv1", "bn": "bn1"}[parts[1]]
+            out[".".join([dst, *parts[2:]])] = v
+        elif re.fullmatch(r"s\d+", parts[0]) and parts[1].startswith("b"):
+            block = f"layer{parts[0][1:]}.{int(parts[1][1:]) - 1}"
+            if parts[2] == "f" and parts[3] in _PYCLS:
+                out[".".join([block, _PYCLS[parts[3]], *parts[4:]])] = v
+            elif parts[2] in ("proj", "bn"):
+                sub = "0" if parts[2] == "proj" else "1"
+                out[".".join([block, "downsample", sub, *parts[3:]])] = v
+    return load_torchvision_resnet(out)
+
+
+def load_features_resnet(state_dict: dict) -> dict:
+    """A ResNet keyed by ``nn.Sequential`` indices over torchvision's
+    children (the reference's Caffe-converted ``filip`` weights: ``0`` =
+    conv1, ``1`` = bn1, ``4``-``7`` = layer1-4) -> the port's ``ResNet``
+    state dict.  Pair it with the Caffe input convention (BGR, 0-255)."""
+    out = {}
+    for k, v in state_dict.items():
+        head, _, rest = k.partition(".")
+        if head == "0":
+            out["conv1." + rest] = v
+        elif head == "1":
+            out["bn1." + rest] = v
+        elif head in ("4", "5", "6", "7"):
+            out[f"layer{int(head) - 3}." + rest] = v
+    return load_torchvision_resnet(out)
 
 
 def seeded_init(module: nn.Module, seed: int) -> None:
@@ -129,14 +200,19 @@ def training_init(module: nn.Module, generator: torch.Generator) -> None:
     """Initialize as the JAX models do, drawing from ``generator`` in
     module order: every conv and linear weight ``lecun_normal`` (flax's:
     normal with std ``sqrt(1 / fan_in) / 0.8796``, truncated at two std),
-    biases 0; BN scale 1, bias 0, running mean 0, running variance 1; a
-    ``classifier_w`` xavier-uniform.  A learnable GeM ``gem_p`` keeps its
-    value.  torch's default conv init (kaiming-uniform, a = sqrt(5)) has a
-    third of this variance and is not used.
+    biases 0 (flax's ``Dense`` / ``Conv`` defaults); a module marked
+    ``zero_init`` (SOLAR's ``v``) all zeros; BN scale 1, bias 0, running
+    mean 0, running variance 1; a ``classifier_w`` xavier-uniform.  A
+    learnable GeM ``gem_p`` keeps its value.  torch's default conv init
+    (kaiming-uniform, a = sqrt(5)) has a third of this variance and is
+    not used.
     """
     with torch.no_grad():
         for mod in module.modules():
-            if isinstance(mod, (nn.Conv2d, nn.Linear)):
+            if getattr(mod, "zero_init", False):  # SOLAR's v
+                mod.weight.zero_()
+                mod.bias.zero_()
+            elif isinstance(mod, (nn.Conv2d, nn.Linear)):
                 w = mod.weight
                 std = math.sqrt(1.0 / (w[0].numel())) / _TRUNC_STD
                 nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,

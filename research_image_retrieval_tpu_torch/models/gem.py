@@ -26,6 +26,7 @@ from research_image_retrieval_tpu_torch.models.backbone import (
     ResNet,
     compute_dtype,
     stage_extents,
+    train_mode,
 )
 from research_image_retrieval_tpu_torch.models.registry import register_model
 from research_image_retrieval_tpu_torch.ops.gem_head import gem_whiten_l2
@@ -64,11 +65,7 @@ class GeMModel(nn.Module):
         images.  ``train`` (default: the module's mode, which it must
         match) adds the angular margin; eval logits are the scaled cosine
         (m = 0), so argmax accuracy is not penalized on the target."""
-        train = self.training if train is None else train
-        if train != self.training:
-            raise ValueError(f"train={train} with the module in "
-                             f"{'train' if self.training else 'eval'} "
-                             "mode: call .train() or .eval() first")
+        train = train_mode(self, train)
         fmap = self.backbone(x)
         pooled = gem_pool(fmap, p=self.p if self.gem_p is None else self.gem_p)
         logits = arcface_logits(self.whiten(pooled), self.classifier_w,
@@ -76,8 +73,7 @@ class GeMModel(nn.Module):
         return cross_entropy(logits, labels), logits
 
     def _head(self, x, valid_hw, weight_dtype):
-        if self.training:
-            raise ValueError("extraction uses BN running stats: call .eval()")
+        train_mode(self, False)  # extraction reads BN's running stats
         fmap = self.backbone(x, valid_hw=valid_hw).contiguous()
         ext = (None if valid_hw is None
                else stage_extents(valid_hw, 5, self.dilation_block5))
@@ -101,9 +97,14 @@ class GeMModel(nn.Module):
 
 register_model(
     "gem_r50",
-    description="ResNet50-GeM global descriptor (reference RetrievalNet.py:327)",
+    description="ResNet50-GeM global descriptor with ArcFace (reference "
+                "RetrievalNet.py:327)",
     defaults=dict(backbone_name="resnet50", outputdim=2048, p=3.0, s=32.0,
                   m=0.15),
+    family="gem",
+    paper="Radenovic et al., Fine-tuning CNN Image Retrieval with No Human "
+          "Annotation (TPAMI 2018)",
+    table1_names=("R50-GeM",),
 )(GeMModel)
 
 register_model(
@@ -111,4 +112,6 @@ register_model(
     description="ResNet101-GeM global descriptor with ArcFace",
     defaults=dict(backbone_name="resnet101", outputdim=2048, p=3.0, s=32.0,
                   m=0.15),
+    family="gem",
+    table1_names=("R101-GeM",),
 )(GeMModel)

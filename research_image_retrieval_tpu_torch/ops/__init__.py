@@ -5,6 +5,7 @@ from research_image_retrieval_tpu_torch.ops.gem_head import (
     gem_whiten_l2_reference,
 )
 from research_image_retrieval_tpu_torch.ops.losses import (
+    arcface_delg_logits,
     arcface_logits,
     cross_entropy,
     topk_errors,
@@ -13,12 +14,20 @@ from research_image_retrieval_tpu_torch.ops.masking import (
     ceil_half,
     downsample_extents,
     hw_mask,
+    mask_attn_logits,
+    token_mask,
 )
 from research_image_retrieval_tpu_torch.ops.norm import (
+    at_least_fp32,
     fused_input_norm,
     l2_normalize,
 )
-from research_image_retrieval_tpu_torch.ops.pooling import gem_pool
+from research_image_retrieval_tpu_torch.ops.pooling import (
+    avg_pool_all,
+    gem_pool,
+    max_pool_all,
+    spoc_pool,
+)
 from research_image_retrieval_tpu_torch.ops.resblock import (
     fold_bn,
     fused_bottleneck,
@@ -40,7 +49,10 @@ from research_image_retrieval_tpu_torch.ops.whiten import (
 __all__ = [
     "apply_whitening",
     "approx_streaming_topk",
+    "arcface_delg_logits",
     "arcface_logits",
+    "at_least_fp32",
+    "avg_pool_all",
     "ceil_half",
     "cross_entropy",
     "dense_resize_weights",
@@ -55,9 +67,13 @@ __all__ = [
     "hw_mask",
     "int8_streaming_topk",
     "l2_normalize",
+    "mask_attn_logits",
+    "max_pool_all",
     "pca_whiten_learn",
     "quantize_gallery_int8",
     "scan_streaming_topk",
+    "spoc_pool",
     "streaming_topk",
+    "token_mask",
     "topk_errors",
 ]

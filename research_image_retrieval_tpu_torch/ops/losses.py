@@ -1,10 +1,11 @@
 """Margin classification loss of the flagship and its metrics
-(port of ``cross_entropy``, ``arcface_logits`` and ``topk_errors`` of
+(port of ``cross_entropy``, ``arcface_logits``, ``arcface_delg_logits``
+and ``topk_errors`` of
 ``research_image_retrieval_tpu/ops/losses.py``).
 
-The classifier weight is an explicit argument, as in the JAX functions.
-``arcface_delg_logits`` and ``madacos_loss`` belong to the DELG and
-ULTRON models and are not ported yet.
+The classifier weight is an explicit argument, as in the JAX functions;
+``arcface_delg_logits`` returns its EMA state instead of mutating it.
+``madacos_loss`` belongs to ULTRON and is not ported yet.
 """
 
 from __future__ import annotations
@@ -14,19 +15,19 @@ import math
 import torch
 import torch.nn.functional as F
 
-from research_image_retrieval_tpu_torch.ops.norm import l2_normalize
+from research_image_retrieval_tpu_torch.ops.norm import (
+    at_least_fp32,
+    l2_normalize,
+)
 
-__all__ = ["arcface_logits", "cross_entropy", "topk_errors"]
-
-
-def _at_least_fp32(x: torch.Tensor) -> torch.Tensor:
-    return x.to(torch.promote_types(x.dtype, torch.float32))
+__all__ = ["arcface_delg_logits", "arcface_logits", "cross_entropy",
+           "topk_errors"]
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean softmax cross entropy with integer labels (fp32; float64
     input stays float64, as in every function here)."""
-    logits = _at_least_fp32(logits)
+    logits = at_least_fp32(logits)
     logz = torch.logsumexp(logits, dim=-1)
     target = torch.gather(logits, -1, labels[:, None].long())[:, 0]
     return (logz - target).mean()
@@ -41,12 +42,39 @@ def arcface_logits(features: torch.Tensor, weight: torch.Tensor,
     here.  The margin is added to the target class's angle only, and not
     where ``theta > pi - m`` (the angle would wrap).
     """
-    cos_theta = torch.matmul(l2_normalize(_at_least_fp32(features)),
-                             l2_normalize(_at_least_fp32(weight)).t())
+    cos_theta = torch.matmul(l2_normalize(at_least_fp32(features)),
+                             l2_normalize(at_least_fp32(weight)).t())
     theta = torch.arccos(torch.clamp(cos_theta, -1.0 + eps, 1.0 - eps))
     one_hot = F.one_hot(labels.long(), weight.shape[0]).bool()
     selected = one_hot & ~(theta > (math.pi - m))
     return torch.cos(torch.where(selected, theta + m, theta)) * s
+
+
+def arcface_delg_logits(features: torch.Tensor, weight: torch.Tensor,
+                        labels: torch.Tensor, t_state: torch.Tensor,
+                        s: float = 64.0, m: float = 0.50, eps: float = 1e-6):
+    """DELG's ArcFace with hard-example rescaling: the target logit is
+    ``cos(theta + m)`` by cos algebra, or ``cos - sin(pi - m) * m`` below
+    ``cos(pi - m)``; non-target cosines above the margined target are
+    rescaled to ``(t + cos) * cos``, ``t`` an EMA of the batch's mean
+    target cosine.  Returns ``(logits [B, C], new_t_state [1])``; the new
+    state carries no gradient."""
+    cos_m, sin_m = math.cos(m), math.sin(m)
+    threshold = math.cos(math.pi - m)
+    mm = math.sin(math.pi - m) * m
+    cos_theta = torch.matmul(l2_normalize(at_least_fp32(features)),
+                             l2_normalize(at_least_fp32(weight)).t())
+    cos_theta = torch.clamp(cos_theta, -1.0 + eps, 1.0 - eps)
+    target = torch.gather(cos_theta, 1, labels[:, None].long())  # [B, 1]
+    sin_theta = torch.sqrt(torch.clamp(1.0 - target ** 2, min=0.0))
+    cos_theta_m = target * cos_m - sin_theta * sin_m
+    new_t = (target.mean() * 0.01
+             + 0.99 * t_state.reshape(())).detach().reshape(1)
+    out = torch.where(cos_theta > cos_theta_m,
+                      cos_theta * (new_t[0] + cos_theta), cos_theta)
+    final_target = torch.where(target > threshold, cos_theta_m, target - mm)
+    one_hot = F.one_hot(labels.long(), weight.shape[0]).bool()
+    return torch.where(one_hot, final_target, out) * s, new_t
 
 
 def topk_errors(logits: torch.Tensor, labels: torch.Tensor, ks=(1, 5)):

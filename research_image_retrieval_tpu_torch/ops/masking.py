@@ -11,7 +11,13 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["ceil_half", "downsample_extents", "hw_mask"]
+__all__ = ["ceil_half", "downsample_extents", "hw_mask", "mask_attn_logits",
+           "token_mask"]
+
+# Large finite negative for masked attention logits, not -inf: a row whose
+# keys are all padding then softmaxes to uniform finite values (which a
+# later pooling mask removes) instead of NaN.
+_NEG = -1e30
 
 
 def ceil_half(extents: torch.Tensor) -> torch.Tensor:
@@ -35,3 +41,18 @@ def hw_mask(h: int, w: int, extents: torch.Tensor,
     row = torch.arange(h, device=dev)[None, :] < extents[:, 0:1]  # [B, h]
     col = torch.arange(w, device=dev)[None, :] < extents[:, 1:2]  # [B, w]
     return (row[:, :, None] & col[:, None, :]).to(dtype)
+
+
+def token_mask(h: int, w: int, extents: torch.Tensor,
+               dtype=torch.float32) -> torch.Tensor:
+    """[B, h*w] mask over row-major flattened HW tokens."""
+    return hw_mask(h, w, extents, dtype=dtype).reshape(-1, h * w)
+
+
+def mask_attn_logits(logits: torch.Tensor,
+                     key_mask: torch.Tensor) -> torch.Tensor:
+    """``logits`` [B, ..., Nk] with the keys where ``key_mask`` [B, Nk]
+    is 0 set to ``_NEG``, broadcast over the middle axes."""
+    m = key_mask.bool()
+    shape = (m.shape[0],) + (1,) * (logits.dim() - 2) + (m.shape[-1],)
+    return torch.where(m.reshape(shape), logits, _NEG)

@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["l2_normalize", "fused_input_norm"]
+__all__ = ["at_least_fp32", "fused_input_norm", "l2_normalize"]
 
 
 def fused_input_norm(input_norm):
@@ -38,3 +38,9 @@ def l2_normalize(x: torch.Tensor, dim: int = -1,
     """``x / max(||x||_2, eps)``: zero vectors map to zero, not NaN."""
     norm = torch.linalg.vector_norm(x, ord=2, dim=dim, keepdim=True)
     return x / torch.clamp(norm, min=eps)
+
+
+def at_least_fp32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in fp32, or float64 if it is float64 (a bf16 map is read in
+    fp32, as flax promotes it against fp32 parameters)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))

@@ -46,7 +46,11 @@ from research_image_retrieval_tpu_torch.data.transforms import (
     IMAGENET_MEAN,
     IMAGENET_STD,
 )
-from research_image_retrieval_tpu_torch.models import MODEL_REGISTRY, get_model
+from research_image_retrieval_tpu_torch.models import (
+    MODEL_REGISTRY,
+    TABLE1_TO_MODEL_MAPPING,
+    get_model,
+)
 from research_image_retrieval_tpu_torch.train.checkpoint import (
     CheckpointManager,
 )
@@ -102,7 +106,8 @@ def model_kwargs(cfg: TrainConfig) -> dict:
     kwargs = dict(cfg.model_overrides)
     if cfg.compute_dtype in ("", "float32") or "dtype" in kwargs:
         return kwargs
-    builder = MODEL_REGISTRY[cfg.model].builder
+    builder = MODEL_REGISTRY[TABLE1_TO_MODEL_MAPPING.get(cfg.model,
+                                                        cfg.model)].builder
     if "dtype" in inspect.signature(builder).parameters:
         kwargs["dtype"] = cfg.compute_dtype
     else:

@@ -1,8 +1,9 @@
 """Training and evaluation settings (port of
 ``research_image_retrieval_tpu/utils/config.py``): ``TrainConfig`` with
 the JAX fields and defaults plus ``device``, the presets of the families
-the port has (``gem_r50``, ``gem_r101``), and ``EvalConfig`` with the
-fields that the ported evaluation driver and ``cli.evaluate`` read.
+the port has (``gem_r50``, ``gem_r101``, ``dolg_r101``, ``solar_r101``,
+``delg_r50``), and ``EvalConfig`` with the fields that the ported
+evaluation driver and ``cli.evaluate`` read.
 """
 
 from __future__ import annotations
@@ -126,6 +127,16 @@ class EvalConfig:
     # SuperGlobal-style global-feature reranking (index/superglobal.py)
     superglobal: bool = False
     sg_m: int = 100  # shortlist size to refine
+    # DELG local-feature geometric (affine-RANSAC) reranking of the top
+    # rerank_k (index/rerank.py): needs a model with extract_local (the
+    # delg family); locals from rerank_imsize square images, the
+    # lr_top_attn highest-attention cells each; the inlier share is
+    # blended with the first-stage score (rerank_blend: its weight)
+    local_rerank: bool = False
+    lr_top_attn: int = 128
+    rerank_k: int = 20
+    rerank_blend: float = 0.5
+    rerank_imsize: int = 224
 
 
 # Per-model experiment presets (the JAX package's, for the models the
@@ -136,6 +147,12 @@ PRESETS: dict[str, dict[str, Any]] = {
         model_overrides=dict(s=32.0, m=0.15),
     ),
     "gem_r101": dict(model="gem_r101", optimizer="sgd", base_lr=0.01),
+    "dolg_r101": dict(
+        model="dolg_r101", optimizer="sgd", base_lr=0.01,
+        model_overrides=dict(s=30.0, m=0.15),
+    ),
+    "solar_r101": dict(model="solar_r101", optimizer="sgd", base_lr=0.01),
+    "delg_r50": dict(model="delg_r50", optimizer="adamw", base_lr=1e-3),
 }
 
 

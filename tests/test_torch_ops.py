@@ -114,8 +114,9 @@ def test_port_imports_no_jax_source_scan():
 
 
 def test_port_imports_no_jax_at_runtime():
-    """Importing every port module (the serving stack and the CLIs
-    included) with jax and the JAX package blocked."""
+    """Importing every port module (the serving stack, the training
+    stack, the zoo models and the CLIs included) with jax and the JAX
+    package blocked."""
     code = (
         "import sys\n"
         "for m in ('jax', 'flax', 'research_image_retrieval_tpu', 'tools'):\n"
@@ -130,6 +131,14 @@ def test_port_imports_no_jax_at_runtime():
         "import research_image_retrieval_tpu_torch.cli.extract\n"
         "import research_image_retrieval_tpu_torch.cli.search\n"
         "import research_image_retrieval_tpu_torch.cli.serve\n"
+        "import research_image_retrieval_tpu_torch.cli.train\n"
+        "import research_image_retrieval_tpu_torch.cli.pack\n"
+        "import research_image_retrieval_tpu_torch.train\n"
+        "import research_image_retrieval_tpu_torch.train.driver\n"
+        "import research_image_retrieval_tpu_torch.models.dolg\n"
+        "import research_image_retrieval_tpu_torch.models.solar\n"
+        "import research_image_retrieval_tpu_torch.models.delg\n"
+        "import research_image_retrieval_tpu_torch.index.rerank\n"
         "import chip_smoke\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -204,4 +204,5 @@ def test_cli_list_presets(capsys):
     from research_image_retrieval_tpu_torch.cli.train import main
 
     assert main(["--list-presets"]) == 0
-    assert capsys.readouterr().out.split() == ["gem_r101", "gem_r50"]
+    assert capsys.readouterr().out.split() == [
+        "delg_r50", "dolg_r101", "gem_r101", "gem_r50", "solar_r101"]
