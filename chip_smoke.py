@@ -57,7 +57,14 @@ Phases (any failure raises and exits non-zero; there is no fallback):
      29 / 0 and 12 / 1); 9.2 ``cli.evaluate --model delg_r50
      --local-rerank`` on the fixture as a Revisited dataset: its ranks
      against the direct pipeline's, and every shortlisted pair's inlier
-     count on the card against the CPU's.
+     count on the card against the CPU's;
+ 10. the next zoo presets at full width: 10.1 spca_r101, sosnet_r50,
+     spoc_r50, senet_g2_r50 and adaptive_hybrid_r50 as phase 9.1
+     (bottleneck / head launches per pass 29 / 1, 12 / 0, 12 / 0, 0 / 0
+     and 12 / 0); 10.2 ``index.HybridGallery`` (QAFF fusion) on the card
+     with 10.1's adaptive_hybrid_r50: 128 fixture images at 512 px added,
+     16 queries searched at top 100 against the port's CPU gallery, the
+     add and per-search times.
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Needs a CUDA device and the repo.
 """
@@ -1869,85 +1876,214 @@ ZOO = (("dolg_r101", 29, 0, 512), ("solar_r101", 29, 0, 2048),
        ("delg_r50", 12, 1, 2048))  # model, bottleneck / head per pass, D
 
 
-def phase_zoo(torch, gh, rb, smi: str) -> dict:
-    """Phase 9.1: the ResNet zoo presets at full width and depth, seeded
-    weights (``seeded_init(seed=0)``, 8 classes): dolg_r101, solar_r101
-    and delg_r50.  For each, as phase 8: CUDA against the port's CPU path
-    on two images (ms3, bucket 128) at 1e-4; the phase-4 fixture through
-    ``serving_slice`` twice (the second run warm: img/s on the host
-    clock), its mAP and descriptor width; and each kernel's launches over
-    that run against the backbone passes it made (29 / 29 / 12 bottleneck
-    launches and 0 / 0 / 1 head launches per pass: DOLG's GeM feeds
-    ``fc_t`` and SOLAR L2-normalizes before its whiten, so neither is the
-    head's function).  Returns the models' results and the delg_r50 on
-    the card for 9.2."""
-    from research_image_retrieval_tpu_torch.data import (
-        IMAGENET_MEAN,
-        IMAGENET_STD,
-    )
+def full_width_model(torch, gh, rb, smi: str, label: str, name: str,
+                     per_pass: int, heads: int, dim: int, imgs, labels,
+                     few, **overrides):
+    """One zoo preset at full width and depth, seeded weights
+    (``seeded_init(seed=0)``, 8 classes): CUDA against the port's CPU
+    path on the two images ``few`` (ms3, bucket 128) at 1e-4; the
+    phase-4 fixture through ``serving_slice`` twice (the second run warm:
+    img/s on the host clock), its mAP and descriptor width; and each
+    kernel's launches over that run against the backbone passes it made
+    (a forward hook on ``backbone``, or on the stem's ``conv1`` of a
+    model without one).  Returns (results, the model on the card)."""
     from research_image_retrieval_tpu_torch.index import extract_vectors
     from research_image_retrieval_tpu_torch.models import (
         get_model,
         seeded_init,
     )
 
+    kw = dict(scales=SCALES, bucket=128, batch_size=8, device_scales=True,
+              antialias=False)
+    cpu_model = get_model(name, num_classes=8, **overrides)
+    seeded_init(cpu_model, seed=0)
+    cpu_model.eval()
+    gpu_model = copy.deepcopy(cpu_model).cuda().eval()
+    got = extract_vectors(lambda x, v: gpu_model.extract(x, v), few,
+                          device="cuda", **kw)
+    t0 = time.perf_counter()
+    want = extract_vectors(lambda x, v: cpu_model.extract(x, v), few,
+                           device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    err = check_close(f"{label} {name} cuda vs cpu", torch.from_numpy(got),
+                      torch.from_numpy(want), 0.0, 1e-4)
+    del cpu_model
+    passes = [0]
+    stem = (gpu_model.backbone if hasattr(gpu_model, "backbone")
+            else gpu_model.conv1)
+    hook = stem.register_forward_hook(
+        lambda *a: passes.__setitem__(0, passes[0] + 1))
+    serving_slice(gpu_model, imgs, labels, SCALES, bucket=128, k=100,
+                  device="cuda")  # warm: cuDNN plans of every bucket
+    passes[0] = 0
+    _reset_launches(gh, rb)
+    res = serving_slice(gpu_model, imgs, labels, SCALES, bucket=128, k=100,
+                        device="cuda")
+    launches = {"gem_head": gh.gem_whiten_l2.launches,
+                "bottleneck": rb.fused_bottleneck.launches}
+    hook.remove()
+    if launches != {"gem_head": heads * passes[0],
+                    "bottleneck": per_pass * passes[0]}:
+        raise AssertionError(
+            f"{label} {name}: launches {launches} over {passes[0]} backbone "
+            f"passes, want {per_pass} bottleneck and {heads} head launches "
+            "per pass")
+    if res["vecs"].shape != (len(imgs), dim):
+        raise AssertionError(f"{label} {name}: descriptors "
+                             f"{res['vecs'].shape}, want D = {dim}")
+    img_s = len(imgs) / res["extract_s"]
+    print(f"zoo {label} {name}: cuda vs cpu (2 images, ms3, bucket 128) "
+          f"max|err| {err:.3e} (atol 1e-4; cpu {cpu_s:.1f} s); fixture "
+          f"{len(imgs)} images at 1024 px ms3 warm: "
+          f"{res['extract_s']:.2f} s = {img_s:.2f} img/s (host clock); "
+          f"mAP E/M/H {res['mAP']}; D {dim}; launches {launches} over "
+          f"{passes[0]} backbone passes ({per_pass} bottleneck, {heads} "
+          f"head per pass) [{smi}]")
+    return dict(launches=launches, passes=passes[0], img_s=img_s,
+                mAP=res["mAP"], max_abs_err=err), gpu_model
+
+
+def _zoo_inputs():
+    """(fixture images, labels, the two normalized CUDA-vs-CPU images)."""
+    from research_image_retrieval_tpu_torch.data import (
+        IMAGENET_MEAN,
+        IMAGENET_STD,
+    )
+
     imgs, labels = serving_fixture(16, 1024)
     few = [((im.astype(np.float32) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD)
            for im in procedural_images([(512, 683), (384, 512)], seed=5)]
-    kw = dict(scales=SCALES, bucket=128, batch_size=8, device_scales=True,
-              antialias=False)
+    return imgs, labels, few
+
+
+def phase_zoo(torch, gh, rb, smi: str) -> dict:
+    """Phase 9.1: the ResNet zoo presets at full width and depth, seeded
+    weights: dolg_r101, solar_r101 and delg_r50, each through
+    ``full_width_model`` (29 / 29 / 12 bottleneck launches and 0 / 0 / 1
+    head launches per pass: DOLG's GeM feeds ``fc_t`` and SOLAR
+    L2-normalizes before its whiten, so neither is the head's function).
+    Returns the models' results and the delg_r50 on the card for 9.2."""
+    imgs, labels, few = _zoo_inputs()
     out, delg = {}, None
     for name, per_pass, heads, dim in ZOO:
-        cpu_model = get_model(name, num_classes=8)
-        seeded_init(cpu_model, seed=0)
-        cpu_model.eval()
-        gpu_model = copy.deepcopy(cpu_model).cuda().eval()
-        got = extract_vectors(lambda x, v: gpu_model.extract(x, v), few,
-                              device="cuda", **kw)
-        t0 = time.perf_counter()
-        want = extract_vectors(lambda x, v: cpu_model.extract(x, v), few,
-                               device="cpu", **kw)
-        cpu_s = time.perf_counter() - t0
-        err = check_close(f"9.1 {name} cuda vs cpu", torch.from_numpy(got),
-                          torch.from_numpy(want), 0.0, 1e-4)
-        del cpu_model
-        passes = [0]
-        hook = gpu_model.backbone.register_forward_hook(
-            lambda *a: passes.__setitem__(0, passes[0] + 1))
-        serving_slice(gpu_model, imgs, labels, SCALES, bucket=128, k=100,
-                      device="cuda")  # warm: cuDNN plans of every bucket
-        passes[0] = 0
-        _reset_launches(gh, rb)
-        res = serving_slice(gpu_model, imgs, labels, SCALES, bucket=128,
-                            k=100, device="cuda")
-        launches = {"gem_head": gh.gem_whiten_l2.launches,
-                    "bottleneck": rb.fused_bottleneck.launches}
-        hook.remove()
-        if launches != {"gem_head": heads * passes[0],
-                        "bottleneck": per_pass * passes[0]}:
-            raise AssertionError(
-                f"9.1 {name}: launches {launches} over {passes[0]} backbone "
-                f"passes, want {per_pass} bottleneck and {heads} head "
-                "launches per pass")
-        if res["vecs"].shape != (len(imgs), dim):
-            raise AssertionError(f"9.1 {name}: descriptors "
-                                 f"{res['vecs'].shape}, want D = {dim}")
-        img_s = len(imgs) / res["extract_s"]
-        print(f"zoo 9.1 {name}: cuda vs cpu (2 images, ms3, bucket 128) "
-              f"max|err| {err:.3e} (atol 1e-4; cpu {cpu_s:.1f} s); fixture "
-              f"{len(imgs)} images at 1024 px ms3 warm: "
-              f"{res['extract_s']:.2f} s = {img_s:.2f} img/s (host clock); "
-              f"mAP E/M/H {res['mAP']}; D {dim}; launches {launches} over "
-              f"{passes[0]} backbone passes ({per_pass} bottleneck, {heads} "
-              f"head per pass) [{smi}]")
-        out[name] = dict(launches=launches, passes=passes[0], img_s=img_s,
-                         mAP=res["mAP"], max_abs_err=err)
+        out[name], gpu_model = full_width_model(
+            torch, gh, rb, smi, "9.1", name, per_pass, heads, dim, imgs,
+            labels, few)
         if name == "delg_r50":
             delg = gpu_model
         else:
             del gpu_model
         torch.cuda.empty_cache()
     return out, delg
+
+
+# preset, bottleneck / head launches per backbone pass, D
+ZOO_MORE = (("spca_r101", 29, 1, 2048), ("sosnet_r50", 12, 0, 2048),
+            ("spoc_r50", 12, 0, 2048), ("senet_g2_r50", 0, 0, 2048),
+            ("adaptive_hybrid_r50", 12, 0, 2048))
+
+
+def phase_zoo_more(torch, gh, rb, smi: str):
+    """Phase 10.1: the next zoo presets (``utils/config.py PRESETS``, with
+    spca_r101's ``model_overrides``) at full width and depth through
+    ``full_width_model``: SpCa R101 runs the head kernel on its fused
+    map (29 bottleneck + 1 head launches per pass); SoSNet, SpoC and
+    AdaptiveHybrid only the bottleneck (12 per pass: none is GeM ->
+    projection -> L2); SENet-G2+ neither (its SE gate sits inside each
+    residual branch and its G2+ affine between pool and projection).
+    Returns the results and the adaptive_hybrid_r50 on the card."""
+    from research_image_retrieval_tpu_torch.utils.config import get_preset
+
+    imgs, labels, few = _zoo_inputs()
+    out, hybrid = {}, None
+    for name, per_pass, heads, dim in ZOO_MORE:
+        preset = get_preset(name)
+        out[name], gpu_model = full_width_model(
+            torch, gh, rb, smi, "10.1", preset.model, per_pass, heads, dim,
+            imgs, labels, few, **preset.model_overrides)
+        if name == "adaptive_hybrid_r50":
+            hybrid = gpu_model
+        else:
+            del gpu_model
+        torch.cuda.empty_cache()
+    return out, hybrid
+
+
+def phase_hybrid_gallery(torch, gh, rb, smi: str, model) -> dict:
+    """Phase 10.2: ``index.HybridGallery`` on the card with 10.1's
+    adaptive_hybrid_r50 and a QAFF drawn by ``training_init``'s laws
+    (seed 0): the phase-4 fixture's 128 images resized to 512 x 512 and
+    normalized are added, its 16 queries (the first render of each
+    class) searched at top 100 one by one; held against the port's CPU
+    gallery on the same weights (ids equal where neighbouring scores
+    differ by more than 1e-6, scores within 1e-5).  Times ``add`` (host
+    clock, synchronized) and each search (CUDA events, median of 16)."""
+    from research_image_retrieval_tpu_torch.data import (
+        IMAGENET_MEAN,
+        IMAGENET_STD,
+    )
+    from research_image_retrieval_tpu_torch.index import (
+        HybridGallery,
+        resize_bilinear_np,
+    )
+    from research_image_retrieval_tpu_torch.models import QAFF, training_init
+
+    imgs, labels = serving_fixture(16, 1024)
+    batch = np.stack([(resize_bilinear_np(im, 512, 512) / 255.0
+                       - IMAGENET_MEAN) / IMAGENET_STD for im in imgs]
+                     ).astype(np.float32)
+    q_idx = np.arange(0, len(imgs), 8)
+    qaff = QAFF(2048)
+    training_init(qaff, torch.Generator().manual_seed(0))
+    cpu_model, cpu_qaff = copy.deepcopy(model).cpu(), copy.deepcopy(qaff)
+    _reset_launches(gh, rb)
+    gallery = HybridGallery(model, qaff, batch_size=32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gallery.add(batch, labels=labels)
+    torch.cuda.synchronize()
+    add_s = time.perf_counter() - t0
+    got, times = [], []
+    for q in q_idx:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        got.append(gallery.search(batch[q], top_k=100)[:2])
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    launches = {"gem_head": gh.gem_whiten_l2.launches,
+                "bottleneck": rb.fused_bottleneck.launches}
+    if launches["bottleneck"] == 0:
+        raise AssertionError(f"10.2: the bottleneck kernel was not launched: "
+                             f"{launches}")
+    t0 = time.perf_counter()
+    ref = HybridGallery(cpu_model, cpu_qaff, batch_size=32, device="cpu")
+    ref.add(batch, labels=labels)
+    want = [ref.search(batch[q], top_k=100)[:2] for q in q_idx]
+    cpu_s = time.perf_counter() - t0
+    scores = np.concatenate([g[0] for g in got])
+    ids = np.concatenate([g[1] for g in got])
+    want_scores = np.concatenate([w[0] for w in want])
+    want_ids = np.concatenate([w[1] for w in want])
+    err = check_close("10.2 HybridGallery scores cuda vs cpu",
+                      torch.from_numpy(scores), torch.from_numpy(want_scores),
+                      0.0, 1e-5)
+    n_distinct = _same_ids("10.2 HybridGallery ids", ids, want_ids,
+                           want_scores, tol=1e-6)
+    if not (ids[:, 0] == q_idx).all():
+        print(f"hybrid 10.2: own image at rank 1 for "
+              f"{int((ids[:, 0] == q_idx).sum())} of {len(q_idx)} queries")
+    ms = statistics.median(times)
+    print(f"hybrid 10.2 HybridGallery: {len(imgs)} images at 512 px, add "
+          f"{add_s:.2f} s (host clock); {len(q_idx)} queries at top 100: "
+          f"{ms:.2f} ms per search (CUDA events, median; min "
+          f"{min(times):.2f}, max {max(times):.2f}); cuda vs cpu scores "
+          f"max|err| {err:.3e} (atol 1e-5), ids equal on {n_distinct} "
+          f"distinct scores (cpu {cpu_s:.1f} s); launches {launches} "
+          f"[{smi}]")
+    return dict(launches=launches, add_s=add_s, search_ms=ms,
+                max_abs_err=err)
 
 
 def _recorded(module, name: str, calls: list):
@@ -2241,6 +2377,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"zoo phase: {time.perf_counter() - t0:.1f} s [{smi}]")
 
+    # -- 10: SpCa, SoSNet, SpoC, SENet-G2+, AdaptiveHybrid + QAFF gallery -
+    t0 = time.perf_counter()
+    zoo_more, hybrid = phase_zoo_more(torch, gh, rb, smi)
+    gallery = phase_hybrid_gallery(torch, gh, rb, smi, hybrid)
+    del hybrid
+    torch.cuda.empty_cache()
+    print(f"zoo phase 10: {time.perf_counter() - t0:.1f} s [{smi}]")
+
     src = "research_image_retrieval_tpu_torch/csrc/"
     replaces = {
         "gem_head": "research_image_retrieval_tpu/ops/gem_pallas.py:84",
@@ -2261,7 +2405,10 @@ def main() -> int:
                     zoo_launches={
                         **{k: v["launches"][name] for k, v in zoo.items()},
                         "9.2 cli.evaluate --local-rerank":
-                            rerank["launches"][name]})
+                            rerank["launches"][name],
+                        **{k: v["launches"][name]
+                           for k, v in zoo_more.items()},
+                        "10.2 HybridGallery": gallery["launches"][name]})
                for name in ("gem_head", "bottleneck")]
     # the bf16 forms: their main path is a bf16 model's (7.3-bf16), its
     # extraction counted as ``launches``, its validation beside it

@@ -29,6 +29,7 @@ cannot be read without orbax.
 from __future__ import annotations
 
 import os
+import re
 
 import numpy as np
 import torch
@@ -87,8 +88,16 @@ def _unflatten(flat) -> dict:
     return tree
 
 
+# keys of a torchvision-layout ResNet (a backbone-only checkpoint)
+_RESNET_KEY = re.compile(r"(conv1|bn1|fc)\.\w+|layer\d+\.\d+\..+")
+
+
 def load_checkpoint(path: str) -> tuple[dict, bool]:
-    """(state dict, whether it holds only a backbone) from ``path``."""
+    """(state dict, whether it holds only a backbone) from ``path``.  A
+    ``.pt`` state dict is a ResNet for the backbone when every key is a
+    torchvision ResNet's, or every key is under ``backbone.``; else it is
+    a whole model's (a backbone and a head, or a model with its own
+    layers at the top level, as senet_g2's ``layer1_0.se...``)."""
     if os.path.isdir(path):
         raise ValueError(
             f"{path} is a directory (an orbax checkpoint?); the port reads "
@@ -105,9 +114,9 @@ def load_checkpoint(path: str) -> tuple[dict, bool]:
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(sd.get("model"), dict):  # a trainer checkpoint
         sd = sd["model"]
-    if any(k.startswith("backbone.") for k in sd) and \
-            not all(k.startswith("backbone.") for k in sd):
-        return sd, False  # a whole model: backbone and head
+    if not all(k.startswith("backbone.") for k in sd) and \
+            not all(_RESNET_KEY.fullmatch(k) for k in sd):
+        return sd, False  # a whole model
     return {f"backbone.{k}": v
             for k, v in load_torchvision_resnet(sd).items()}, True
 

@@ -3,6 +3,7 @@ from research_image_retrieval_tpu_torch.index.extract import (
     multiscale_descriptor,
     resize_bilinear_np,
 )
+from research_image_retrieval_tpu_torch.index.gallery import HybridGallery
 from research_image_retrieval_tpu_torch.index.qe import (
     IterativeQueryExpansion,
     alpha_query_expansion,
@@ -25,7 +26,7 @@ from research_image_retrieval_tpu_torch.index.superglobal import (
     superglobal_rerank,
 )
 
-__all__ = ["IterativeQueryExpansion", "alpha_query_expansion",
+__all__ = ["HybridGallery", "IterativeQueryExpansion", "alpha_query_expansion",
            "cosine_similarity", "extract_vectors", "gem_aggregate",
            "geometric_verification_batch", "geometric_verification_score",
            "iqe_from_flax", "multiscale_descriptor", "mutual_nn_matches",

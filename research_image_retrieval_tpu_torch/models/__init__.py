@@ -1,5 +1,10 @@
 """Models of the port (importing this package registers them)."""
 
+from research_image_retrieval_tpu_torch.models.adaptive_hybrid import (
+    QAFF,
+    AdaptiveHybridModel,
+    contrastive_loss,
+)
 from research_image_retrieval_tpu_torch.models.backbone import (
     RESNET_STAGE_DEPTHS,
     BasicBlock,
@@ -13,12 +18,22 @@ from research_image_retrieval_tpu_torch.models.convert import (
     load_features_resnet,
     load_pycls_resnet,
     load_torchvision_resnet,
+    qaff_from_flax,
     seeded_init,
     training_init,
 )
 from research_image_retrieval_tpu_torch.models.delg import DELGModel
 from research_image_retrieval_tpu_torch.models.dolg import DOLGModel
 from research_image_retrieval_tpu_torch.models.gem import GeMModel
+from research_image_retrieval_tpu_torch.models.layers import (
+    Attention,
+    Decoder,
+    DropPath,
+    Encoder,
+    LayerNorm,
+    Mlp,
+    TokenBatchNorm,
+)
 from research_image_retrieval_tpu_torch.models.registry import (
     MODEL_REGISTRY,
     TABLE1_TO_MODEL_MAPPING,
@@ -27,20 +42,38 @@ from research_image_retrieval_tpu_torch.models.registry import (
     list_available_models,
     register_model,
 )
+from research_image_retrieval_tpu_torch.models.senet_g2 import SENetG2Model
 from research_image_retrieval_tpu_torch.models.solar import SOLARModel
+from research_image_retrieval_tpu_torch.models.sosnet import SoSNetModel
+from research_image_retrieval_tpu_torch.models.spca import SpCaModel
+from research_image_retrieval_tpu_torch.models.spoc import SpoCModel
 
 __all__ = [
+    "AdaptiveHybridModel",
+    "Attention",
     "BasicBlock",
     "BatchNorm",
     "BottleneckBlock",
     "DELGModel",
     "DOLGModel",
+    "Decoder",
+    "DropPath",
+    "Encoder",
     "GeMModel",
+    "LayerNorm",
     "MODEL_REGISTRY",
+    "Mlp",
+    "QAFF",
     "RESNET_STAGE_DEPTHS",
     "ResNet",
+    "SENetG2Model",
     "SOLARModel",
+    "SoSNetModel",
+    "SpCaModel",
+    "SpoCModel",
     "TABLE1_TO_MODEL_MAPPING",
+    "TokenBatchNorm",
+    "contrastive_loss",
     "from_jax_variables",
     "get_model",
     "get_model_info",
@@ -48,6 +81,7 @@ __all__ = [
     "load_features_resnet",
     "load_pycls_resnet",
     "load_torchvision_resnet",
+    "qaff_from_flax",
     "register_model",
     "seeded_init",
     "stage_extents",

@@ -1,13 +1,21 @@
 """Weight bridge into the port's models.
 
 * ``from_jax_variables``: flax ``{"params", "batch_stats"}`` of the JAX
-  ``ResNet`` or of a model over one (``GeMModel``, ``DOLGModel``,
-  ``SOLARModel``, ``DELGModel``; as numpy arrays) -> the port's state
+  ``ResNet``, of a model over one (``params["backbone"]``: the GeM,
+  DOLG, SOLAR, DELG, SpCa, SoSNet, SpoC and AdaptiveHybrid models) or of
+  ``SENetG2Model`` (no backbone subtree; its own ``conv1``, ``bn1`` and
+  ``layer{i}_{j}`` at the top level); numpy arrays -> the port's state
   dict.  The inverse of the JAX ``convert_torch_resnet`` for the
   backbone (conv kernels HWIO -> OIHW, BN ``scale/bias/mean/var`` ->
   ``weight/bias/running_mean/running_var``, ``layer{i}_{j}`` ->
-  ``layer{i}.{j}``); a head keeps its flax names, its Dense kernels
-  ``[C, D]`` -> Linear ``weight [D, C]`` and its convolutions as above.
+  ``layer{i}.{j}``); the rest keeps its flax names, recursively: Dense
+  kernels ``[C, D]`` -> Linear ``weight [D, C]``, convolutions as
+  above, LayerNorm ``scale`` -> ``weight``, bare parameters
+  (``classifier_w``, ``gem_p``, ``clusters``, ...) as they are.  The
+  scopes that flax gives modules made inside ``nn.compact_name_scope``
+  methods (SpoC's ``_context`` / ``_features``, AdaptiveHybrid's
+  ``descriptors``) are flattened into the model, where the port keeps
+  those modules.  ``qaff_from_flax``: the same for a ``QAFF``.
 * ``load_torchvision_resnet``: a torchvision-layout ResNet state dict
   (optionally under a ``backbone.`` prefix) -> the port's ``ResNet``
   state dict; the names already agree.  ``load_pycls_resnet`` (the
@@ -31,8 +39,11 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from research_image_retrieval_tpu_torch.models.layers import LayerNorm
+
 __all__ = ["from_jax_variables", "load_features_resnet", "load_pycls_resnet",
-           "load_torchvision_resnet", "seeded_init", "training_init"]
+           "load_torchvision_resnet", "qaff_from_flax", "seeded_init",
+           "training_init"]
 
 # std of a unit normal truncated to [-2, 2], by which flax's
 # ``lecun_normal`` (a truncated normal) divides its scale
@@ -76,8 +87,9 @@ def _resnet_from_flax(params: dict, stats: dict, prefix: str) -> dict:
 def _heads_from_flax(params: dict, stats: dict, prefix: str, sd: dict):
     """A model's non-backbone flax modules under their flax names: Dense
     and Conv (``kernel`` [+ ``bias``]), BatchNorm (``scale``/``bias`` +
-    the stats), submodules recursively, and bare arrays
-    (``classifier_w``, ``gem_p``) as they are."""
+    the stats) and LayerNorm (``scale``/``bias``, no stats), submodules
+    recursively, and bare arrays (``classifier_w``, ``gem_p``) as they
+    are."""
     for name, p in params.items():
         key = prefix + name
         if not isinstance(p, dict):
@@ -91,22 +103,47 @@ def _heads_from_flax(params: dict, stats: dict, prefix: str, sd: dict):
         elif "scale" in p:
             sd[f"{key}.weight"] = _t(p["scale"])
             sd[f"{key}.bias"] = _t(p["bias"])
-            sd[f"{key}.running_mean"] = _t(stats[name]["mean"])
-            sd[f"{key}.running_var"] = _t(stats[name]["var"])
+            if name in stats:  # BatchNorm; a LayerNorm has none
+                sd[f"{key}.running_mean"] = _t(stats[name]["mean"])
+                sd[f"{key}.running_var"] = _t(stats[name]["var"])
         else:
             _heads_from_flax(p, stats.get(name, {}), f"{key}.", sd)
 
 
+# flax scopes of modules made inside ``nn.compact_name_scope`` methods
+_NAME_SCOPES = ("_context", "_features", "descriptors")
+
+
+def _flatten_name_scopes(tree: dict) -> dict:
+    out = {}
+    for k, v in tree.items():
+        out.update(v if k in _NAME_SCOPES else {k: v})
+    return out
+
+
 def from_jax_variables(variables: dict) -> dict:
-    """Port state dict from flax variables of ``ResNet`` or of a model
-    whose backbone is one (``params["backbone"]``)."""
-    params = variables["params"]
-    stats = variables.get("batch_stats", {})
-    if "backbone" not in params:  # a bare ResNet
-        return _resnet_from_flax(params, stats, "")
+    """Port state dict from flax variables of ``ResNet``, of a model
+    whose backbone is one (``params["backbone"]``) or of a model with
+    its own layers at the top level (``SENetG2Model``)."""
+    params = _flatten_name_scopes(variables["params"])
+    stats = _flatten_name_scopes(variables.get("batch_stats", {}))
+    if "backbone" not in params:
+        if all(re.fullmatch(r"conv1|bn1|layer\d+_\d+", k) for k in params):
+            return _resnet_from_flax(params, stats, "")  # a bare ResNet
+        sd = {}
+        _heads_from_flax(params, stats, "", sd)
+        return sd
     sd = _resnet_from_flax(params["backbone"], stats["backbone"], "backbone.")
     _heads_from_flax({k: v for k, v in params.items() if k != "backbone"},
                      stats, "", sd)
+    return sd
+
+
+def qaff_from_flax(params: dict) -> dict:
+    """State dict of ``QAFF`` from the JAX module's flax params (numpy
+    arrays; ``{"params": ...}`` or the params tree itself)."""
+    sd = {}
+    _heads_from_flax(params.get("params", params), {}, "", sd)
     return sd
 
 
@@ -175,8 +212,9 @@ def seeded_init(module: nn.Module, seed: int) -> None:
     """Fill every parameter and buffer from ``torch.Generator(seed)`` in
     sorted state-dict order: conv/linear weights N(0, 1/fan_in), BN
     weight 1 + 0.1 N, BN bias and running mean 0.1 N, running var
-    |N| + 0.5, other vectors 0.1 N.  A learnable GeM ``gem_p`` keeps its
-    value."""
+    |N| + 0.5, other vectors 0.1 N.  Parameters a log or a square root
+    reads (SpCa's ``pi`` and ``cov``) get |N| + 0.5, G2+'s ``g2_alpha``
+    1 + 0.1 N; a learnable GeM ``gem_p`` keeps its value."""
     gen = torch.Generator().manual_seed(seed)
     sd = module.state_dict()
     with torch.no_grad():
@@ -185,8 +223,11 @@ def seeded_init(module: nn.Module, seed: int) -> None:
             if k.endswith("num_batches_tracked") or k == "gem_p":
                 continue
             v = torch.randn(tuple(t.shape), generator=gen, dtype=torch.float32)
-            if k.endswith("running_var"):
+            leaf = k.rsplit(".", 1)[-1]
+            if leaf in ("running_var", "pi", "cov"):
                 v = v.abs() + 0.5
+            elif leaf == "g2_alpha":
+                v = 1.0 + 0.1 * v
             elif t.dim() > 1:
                 v = v / math.sqrt(max(int(np.prod(t.shape[1:])), 1))
             elif k.endswith("weight"):
@@ -201,17 +242,20 @@ def training_init(module: nn.Module, generator: torch.Generator) -> None:
     module order: every conv and linear weight ``lecun_normal`` (flax's:
     normal with std ``sqrt(1 / fan_in) / 0.8796``, truncated at two std),
     biases 0 (flax's ``Dense`` / ``Conv`` defaults); a module marked
-    ``zero_init`` (SOLAR's ``v``) all zeros; BN scale 1, bias 0, running
-    mean 0, running variance 1; a ``classifier_w`` xavier-uniform.  A
+    ``zero_init`` (SOLAR's ``v``, ``Attention.proj``) all zeros; BN and
+    LayerNorm scale 1, bias 0, BN running mean 0, running variance 1; a
+    ``classifier_w`` xavier-uniform; a module's own parameters by its
+    ``reset_flax(generator)`` (SpCa's codebook, G2+'s affine).  A
     learnable GeM ``gem_p`` keeps its value.  torch's default conv init
     (kaiming-uniform, a = sqrt(5)) has a third of this variance and is
     not used.
     """
     with torch.no_grad():
         for mod in module.modules():
-            if getattr(mod, "zero_init", False):  # SOLAR's v
+            if getattr(mod, "zero_init", False):  # SOLAR's v, Attention.proj
                 mod.weight.zero_()
-                mod.bias.zero_()
+                if mod.bias is not None:
+                    mod.bias.zero_()
             elif isinstance(mod, (nn.Conv2d, nn.Linear)):
                 w = mod.weight
                 std = math.sqrt(1.0 / (w[0].numel())) / _TRUNC_STD
@@ -219,8 +263,10 @@ def training_init(module: nn.Module, generator: torch.Generator) -> None:
                                       generator=generator)
                 if mod.bias is not None:
                     mod.bias.zero_()
-            elif isinstance(mod, nn.BatchNorm2d):
+            elif isinstance(mod, (nn.BatchNorm2d, LayerNorm)):
                 mod.reset_parameters()
+            if hasattr(mod, "reset_flax"):
+                mod.reset_flax(generator)
         cls_w = getattr(module, "classifier_w", None)
         if cls_w is not None:
             nn.init.xavier_uniform_(cls_w, generator=generator)

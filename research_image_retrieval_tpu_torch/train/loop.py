@@ -36,7 +36,8 @@ class TrainState:
     """Everything a resumable train step needs: the model (parameters and
     BN statistics), the optimizer state, the step count and the step's
     random generator (split once per step, as the JAX step splits its
-    key, so a resume continues the same stream)."""
+    key, so a resume continues the same stream; each step's draw seeds
+    the generator a dropout model's forward takes)."""
 
     step: int
     model: nn.Module
@@ -79,6 +80,15 @@ def _to_device(images, labels, device):
     return x, y
 
 
+def _takes_generator(model: nn.Module) -> bool:
+    """Whether ``model``, or the module a DDP or ``torch.compile`` wrapper
+    holds, draws its dropout from a per-step generator: such a model
+    declares ``takes_generator = True``."""
+    for attr in ("module", "_orig_mod"):
+        model = getattr(model, attr, model)
+    return bool(getattr(model, "takes_generator", False))
+
+
 def make_train_step(input_norm=None):
     """``step(state, images, labels) -> (state, metrics)``: uint8 (or
     normalized float) NHWC batches in, normalized on the device with
@@ -92,13 +102,17 @@ def make_train_step(input_norm=None):
         model, opt = state.model, state.optimizer
         dev = next(model.parameters()).device
         x, y = _to_device(images, labels, dev)
-        # the JAX step splits its key every step; a dropout model would
-        # take its seed from this draw
-        torch.randint(2 ** 62, (1,), generator=state.rng)
+        # the JAX step splits its key every step: this draw seeds the
+        # step's dropout generator (on the model's device), so a resumed
+        # run drops what the straight run dropped
+        seed = int(torch.randint(2 ** 62, (1,), generator=state.rng))
+        kw = {}
+        if _takes_generator(model):
+            kw["generator"] = torch.Generator(device=dev).manual_seed(seed)
         model.train()
         with fp32_precision():
             opt.zero_grad()
-            loss, logits = model(prep(x), y, train=True)
+            loss, logits = model(prep(x), y, train=True, **kw)
             loss.backward()
             grad_norm = opt.step()
         e1, e5 = topk_errors(logits.detach(), y, ks=(1, 5))

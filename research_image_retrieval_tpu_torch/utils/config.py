@@ -1,8 +1,9 @@
 """Training and evaluation settings (port of
 ``research_image_retrieval_tpu/utils/config.py``): ``TrainConfig`` with
 the JAX fields and defaults plus ``device``, the presets of the families
-the port has (``gem_r50``, ``gem_r101``, ``dolg_r101``, ``solar_r101``,
-``delg_r50``), and ``EvalConfig`` with the fields that the ported
+the port has (``gem_r50``, ``gem_r101``, ``spca_r101``, ``dolg_r101``,
+``solar_r101``, ``delg_r50``, ``sosnet_r50``, ``spoc_r50``,
+``senet_g2_r50``, ``adaptive_hybrid_r50``), and ``EvalConfig`` with the fields that the ported
 evaluation driver and ``cli.evaluate`` read.
 """
 
@@ -147,12 +148,25 @@ PRESETS: dict[str, dict[str, Any]] = {
         model_overrides=dict(s=32.0, m=0.15),
     ),
     "gem_r101": dict(model="gem_r101", optimizer="sgd", base_lr=0.01),
+    "spca_r101": dict(
+        # reference spca_training_example.sh + config/meta.yml defaults
+        model="spca_r101", optimizer="sgd", base_lr=0.01,
+        model_overrides=dict(K=16, local_dim=128, multi=1, combine="cro",
+                             outputdim=2048, s=45.0, m=0.2),
+    ),
     "dolg_r101": dict(
         model="dolg_r101", optimizer="sgd", base_lr=0.01,
         model_overrides=dict(s=30.0, m=0.15),
     ),
     "solar_r101": dict(model="solar_r101", optimizer="sgd", base_lr=0.01),
     "delg_r50": dict(model="delg_r50", optimizer="adamw", base_lr=1e-3),
+    "sosnet_r50": dict(model="sosnet_r50", optimizer="adamw", base_lr=1e-3),
+    "spoc_r50": dict(model="spoc_r50", optimizer="sgd", base_lr=0.01),
+    "senet_g2_r50": dict(model="senet_g2_r50", optimizer="sgd", base_lr=0.01),
+    "adaptive_hybrid_r50": dict(
+        model="adaptive_hybrid_r50", optimizer="adamw", base_lr=1e-3,
+        num_epochs=8,
+    ),
 }
 
 
