@@ -64,7 +64,17 @@ Phases (any failure raises and exits non-zero; there is no fallback):
      and 12 / 0); 10.2 ``index.HybridGallery`` (QAFF fusion) on the card
      with 10.1's adaptive_hybrid_r50: 128 fixture images at 512 px added,
      16 queries searched at top 100 against the port's CPU gallery, the
-     add and per-search times.
+     add and per-search times;
+ 11. the rest of the ResNet zoo and CVNet's rerank: 11.1 token_r101,
+     how_vlad_r50 and how_asmk_r50 as phase 9.1 (bottleneck / head
+     launches per pass 29 / 0, 12 / 0, 12 / 0; ASMK's CUDA-vs-CPU check
+     allows near-tied selections only, each printed); 11.2
+     ``cli.evaluate --model gem_r50 --multiscale --cvnet-rerank`` on the
+     fixture as a Revisited dataset with a seeded ResNet-50 CVNet: ranks
+     against the direct pipeline's, 12 bottleneck launches per feature-map
+     pass, every shortlisted pair's score on the card against the CPU's,
+     the scorer's time per 16-pair chunk at 224 and 512 px and its peak
+     memory at 512.
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Needs a CUDA device and the repo.
 """
@@ -1859,7 +1869,7 @@ def phase_flagship(torch, gh, rb, smi: str) -> dict:
             raise AssertionError(f"8 {name}: descriptors {res['vecs'].shape}")
         img_s = len(imgs) / res["extract_s"]
         print(f"flagship 8 {name}: cuda vs cpu (2 images, ms3, bucket 128) "
-              f"max|err| {err:.3e} (atol 1e-4; cpu {cpu_s:.1f} s); fixture "
+              f"max|err| {err:.3e} (atol 1e-4; check {cpu_s:.1f} s); fixture "
               f"{len(imgs)} images at 1024 px ms3 warm: "
               f"{res['extract_s']:.2f} s = {img_s:.2f} img/s (host clock); "
               f"mAP E/M/H {res['mAP']}; launches {launches} over "
@@ -1876,17 +1886,27 @@ ZOO = (("dolg_r101", 29, 0, 512), ("solar_r101", 29, 0, 2048),
        ("delg_r50", 12, 1, 2048))  # model, bottleneck / head per pass, D
 
 
+def _descriptors_close(torch, what, run, gpu_model, cpu_model) -> float:
+    """max |err| of ``run``'s descriptors on the card against the CPU's
+    (atol 1e-4)."""
+    got = run(gpu_model, "cuda")
+    want = run(cpu_model, "cpu")
+    return check_close(f"{what} cuda vs cpu", torch.from_numpy(got),
+                       torch.from_numpy(want), 0.0, 1e-4)
+
+
 def full_width_model(torch, gh, rb, smi: str, label: str, name: str,
                      per_pass: int, heads: int, dim: int, imgs, labels,
-                     few, **overrides):
+                     few, compare=_descriptors_close, **overrides):
     """One zoo preset at full width and depth, seeded weights
     (``seeded_init(seed=0)``, 8 classes): CUDA against the port's CPU
-    path on the two images ``few`` (ms3, bucket 128) at 1e-4; the
-    phase-4 fixture through ``serving_slice`` twice (the second run warm:
-    img/s on the host clock), its mAP and descriptor width; and each
-    kernel's launches over that run against the backbone passes it made
-    (a forward hook on ``backbone``, or on the stem's ``conv1`` of a
-    model without one).  Returns (results, the model on the card)."""
+    path on the two images ``few`` (ms3, bucket 128) by ``compare`` (the
+    descriptors at 1e-4); the phase-4 fixture through ``serving_slice``
+    twice (the second run warm: img/s on the host clock), its mAP and
+    descriptor width; and each kernel's launches over that run against
+    the backbone passes it made (a forward hook on ``backbone``, or on
+    the stem's ``conv1`` of a model without one).  Returns (results, the
+    model on the card)."""
     from research_image_retrieval_tpu_torch.index import extract_vectors
     from research_image_retrieval_tpu_torch.models import (
         get_model,
@@ -1899,14 +1919,14 @@ def full_width_model(torch, gh, rb, smi: str, label: str, name: str,
     seeded_init(cpu_model, seed=0)
     cpu_model.eval()
     gpu_model = copy.deepcopy(cpu_model).cuda().eval()
-    got = extract_vectors(lambda x, v: gpu_model.extract(x, v), few,
-                          device="cuda", **kw)
+
+    def run(model, device):
+        return extract_vectors(lambda x, v: model.extract(x, v), few,
+                               device=device, **kw)
+
     t0 = time.perf_counter()
-    want = extract_vectors(lambda x, v: cpu_model.extract(x, v), few,
-                           device="cpu", **kw)
+    err = compare(torch, f"{label} {name}", run, gpu_model, cpu_model)
     cpu_s = time.perf_counter() - t0
-    err = check_close(f"{label} {name} cuda vs cpu", torch.from_numpy(got),
-                      torch.from_numpy(want), 0.0, 1e-4)
     del cpu_model
     passes = [0]
     stem = (gpu_model.backbone if hasattr(gpu_model, "backbone")
@@ -1933,7 +1953,7 @@ def full_width_model(torch, gh, rb, smi: str, label: str, name: str,
                              f"{res['vecs'].shape}, want D = {dim}")
     img_s = len(imgs) / res["extract_s"]
     print(f"zoo {label} {name}: cuda vs cpu (2 images, ms3, bucket 128) "
-          f"max|err| {err:.3e} (atol 1e-4; cpu {cpu_s:.1f} s); fixture "
+          f"max|err| {err:.3e} (atol 1e-4; check {cpu_s:.1f} s); fixture "
           f"{len(imgs)} images at 1024 px ms3 warm: "
           f"{res['extract_s']:.2f} s = {img_s:.2f} img/s (host clock); "
           f"mAP E/M/H {res['mAP']}; D {dim}; launches {launches} over "
@@ -2014,10 +2034,13 @@ def phase_hybrid_gallery(torch, gh, rb, smi: str, model) -> dict:
     adaptive_hybrid_r50 and a QAFF drawn by ``training_init``'s laws
     (seed 0): the phase-4 fixture's 128 images resized to 512 x 512 and
     normalized are added, its 16 queries (the first render of each
-    class) searched at top 100 one by one; held against the port's CPU
-    gallery on the same weights (ids equal where neighbouring scores
-    differ by more than 1e-6, scores within 1e-5).  Times ``add`` (host
-    clock, synchronized) and each search (CUDA events, median of 16)."""
+    class) searched at top 100 one by one.  Times ``add`` (host clock,
+    synchronized) and each search (CUDA events, median of 16).  Then a
+    card gallery of the first 64 images (8 classes) is held against the
+    port's CPU gallery of the same images and weights, each of those 8
+    classes' queries searched on both (ids equal where neighbouring
+    scores differ by more than 1e-6, scores within 1e-5): 64 and not 128
+    images, so that the CPU half stays within the script's time."""
     from research_image_retrieval_tpu_torch.data import (
         IMAGENET_MEAN,
         IMAGENET_STD,
@@ -2043,12 +2066,12 @@ def phase_hybrid_gallery(torch, gh, rb, smi: str, model) -> dict:
     gallery.add(batch, labels=labels)
     torch.cuda.synchronize()
     add_s = time.perf_counter() - t0
-    got, times = [], []
+    times = []
     for q in q_idx:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        got.append(gallery.search(batch[q], top_k=100)[:2])
+        gallery.search(batch[q], top_k=100)
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
@@ -2057,10 +2080,15 @@ def phase_hybrid_gallery(torch, gh, rb, smi: str, model) -> dict:
     if launches["bottleneck"] == 0:
         raise AssertionError(f"10.2: the bottleneck kernel was not launched: "
                              f"{launches}")
+    n_cmp = 64
+    cmp_q = q_idx[q_idx < n_cmp]
+    small = HybridGallery(model, qaff, batch_size=32)
+    small.add(batch[:n_cmp], labels=labels[:n_cmp])
+    got = [small.search(batch[q], top_k=100)[:2] for q in cmp_q]
     t0 = time.perf_counter()
     ref = HybridGallery(cpu_model, cpu_qaff, batch_size=32, device="cpu")
-    ref.add(batch, labels=labels)
-    want = [ref.search(batch[q], top_k=100)[:2] for q in q_idx]
+    ref.add(batch[:n_cmp], labels=labels[:n_cmp])
+    want = [ref.search(batch[q], top_k=100)[:2] for q in cmp_q]
     cpu_s = time.perf_counter() - t0
     scores = np.concatenate([g[0] for g in got])
     ids = np.concatenate([g[1] for g in got])
@@ -2071,16 +2099,17 @@ def phase_hybrid_gallery(torch, gh, rb, smi: str, model) -> dict:
                       0.0, 1e-5)
     n_distinct = _same_ids("10.2 HybridGallery ids", ids, want_ids,
                            want_scores, tol=1e-6)
-    if not (ids[:, 0] == q_idx).all():
+    if not (ids[:, 0] == cmp_q).all():
         print(f"hybrid 10.2: own image at rank 1 for "
-              f"{int((ids[:, 0] == q_idx).sum())} of {len(q_idx)} queries")
+              f"{int((ids[:, 0] == cmp_q).sum())} of {len(cmp_q)} queries")
     ms = statistics.median(times)
     print(f"hybrid 10.2 HybridGallery: {len(imgs)} images at 512 px, add "
           f"{add_s:.2f} s (host clock); {len(q_idx)} queries at top 100: "
           f"{ms:.2f} ms per search (CUDA events, median; min "
-          f"{min(times):.2f}, max {max(times):.2f}); cuda vs cpu scores "
-          f"max|err| {err:.3e} (atol 1e-5), ids equal on {n_distinct} "
-          f"distinct scores (cpu {cpu_s:.1f} s); launches {launches} "
+          f"{min(times):.2f}, max {max(times):.2f}); launches {launches}; "
+          f"on the first {n_cmp} images, {len(cmp_q)} queries at top "
+          f"{n_cmp}: cuda vs cpu scores max|err| {err:.3e} (atol 1e-5), ids "
+          f"equal on {n_distinct} distinct scores (cpu {cpu_s:.1f} s) "
           f"[{smi}]")
     return dict(launches=launches, add_s=add_s, search_ms=ms,
                 max_abs_err=err)
@@ -2215,6 +2244,317 @@ def phase_local_rerank(torch, gh, rb, smi: str, model) -> dict:
     shutil.rmtree(work, ignore_errors=True)
     return dict(launches=launches, before=before, after=after, cli_s=cli_s,
                 rerank_s=rerank_s)
+
+
+# preset, bottleneck / head launches per backbone pass, D
+ZOO_TOKEN_HOW = (("token_r101", 29, 0, 1024), ("how_vlad_r50", 12, 0, 2048),
+                 ("how_asmk_r50", 12, 0, 2048))
+NEAR_TIE = 1e-5  # an ASMK selection may differ only where a gap is below
+
+
+def _asmk_cuda_vs_cpu(torch, what, run, gpu_model, cpu_model) -> float:
+    """ASMK's CUDA-vs-CPU check.  The selection is discontinuous in the
+    distances, so each ``asmk_aggregate`` call of ``run`` (one per batch
+    and scale, in the same order on both devices) is recorded on both,
+    and its valid tokens' nearest centroids and keep bits compared
+    first.  A token may differ only as a near tie: its two nearest
+    distances, or its nearest distance and its image's threshold, within
+    ``NEAR_TIE`` on the CPU (each printed with its gaps); any other
+    difference fails.  Where a row's selection agrees, its ASMK vector
+    is held at 1e-4; where every row agrees, the descriptors too.
+    Returns the largest error held."""
+    from research_image_retrieval_tpu_torch.models import how
+
+    calls, desc = {"card": [], "cpu": []}, {}
+    real = how.asmk_aggregate
+    for key, dev, model in (("card", "cuda", gpu_model),
+                            ("cpu", "cpu", cpu_model)):
+        def recorded(x, centroids, weights, mask=None, _calls=calls[key]):
+            _calls.append((x, centroids, mask, real(x, centroids, weights,
+                                                    mask=mask)))
+            return _calls[-1][-1]
+
+        how.asmk_aggregate = recorded
+        try:
+            desc[key] = run(model, dev)
+        finally:
+            how.asmk_aggregate = real
+    if len(calls["card"]) != len(calls["cpu"]) or not calls["cpu"]:
+        raise AssertionError(f"{what}: {len(calls['card'])} ASMK calls on "
+                             f"the card, {len(calls['cpu'])} on the CPU")
+    err, ties, rows = 0.0, 0, 0
+    for i, (g, c) in enumerate(zip(calls["card"], calls["cpu"])):
+        sel = {}
+        for key, (x, cen, mask, _) in (("card", g), ("cpu", c)):
+            nearest, keep, dist, thresh = how.asmk_select(x, cen, mask)
+            sel[key] = [t.detach().cpu().double().numpy()
+                        for t in (nearest, keep, dist, thresh)]
+        valid = (np.ones_like(sel["cpu"][1]) if c[2] is None
+                 else c[2].cpu().numpy() > 0)
+        nearest_bad = (sel["card"][0] != sel["cpu"][0]) & (valid > 0)
+        keep_bad = sel["card"][1] != sel["cpu"][1]
+        for b, n in zip(*np.nonzero(nearest_bad | keep_bad)):
+            gaps = {}
+            for key in ("cpu", "card"):
+                d = np.sort(sel[key][2][b, n])
+                gaps[key] = (d[1] - d[0], abs(d[0] - sel[key][3][b, 0]))
+            cut = min(gaps["cpu"][0] if nearest_bad[b, n] else np.inf,
+                      gaps["cpu"][1] if keep_bad[b, n] else np.inf)
+            print(f"{what} ASMK call {i} image {b} token {n}: nearest "
+                  f"{sel['card'][0][b, n]:.0f} / {sel['cpu'][0][b, n]:.0f}, "
+                  f"keep {sel['card'][1][b, n]:.0f} / "
+                  f"{sel['cpu'][1][b, n]:.0f} (card / cpu); gaps (two "
+                  f"nearest, to the threshold) cpu {gaps['cpu'][0]:.3e}, "
+                  f"{gaps['cpu'][1]:.3e}, card {gaps['card'][0]:.3e}, "
+                  f"{gaps['card'][1]:.3e}")
+            if cut >= NEAR_TIE:
+                raise AssertionError(f"{what}: an ASMK selection differs "
+                                     f"beyond a near tie ({cut:.3e})")
+            ties += 1
+        agree = ~(nearest_bad | keep_bad).any(axis=1)
+        rows += int(agree.sum())
+        if agree.any():
+            err = max(err, check_close(
+                f"{what} ASMK vectors (call {i}) cuda vs cpu",
+                g[3][torch.from_numpy(agree).cuda()].cpu(),
+                c[3][torch.from_numpy(agree)], 0.0, 1e-4))
+    if ties == 0:
+        err = max(err, check_close(
+            f"{what} cuda vs cpu", torch.from_numpy(desc["card"]),
+            torch.from_numpy(desc["cpu"]), 0.0, 1e-4))
+    print(f"{what}: {len(calls['cpu'])} ASMK calls, {rows} rows with equal "
+          f"selections held at 1e-4, {ties} near-tied tokens"
+          + ("" if ties else "; descriptors held at 1e-4"))
+    return err
+
+
+def phase_token_how(torch, gh, rb, smi: str) -> dict:
+    """Phase 11.1: the rest of the ResNet zoo's presets at full width and
+    depth through ``full_width_model``: token_r101 (29 bottleneck
+    launches per pass), how_vlad_r50 and how_asmk_r50 (12 each); no head
+    launch (Token's head is its ``TokenRefine``, HOW's a VLAD or ASMK
+    aggregation and a Linear).  ASMK's CUDA-vs-CPU check allows near
+    ties only (``_asmk_cuda_vs_cpu``)."""
+    from research_image_retrieval_tpu_torch.utils.config import get_preset
+
+    imgs, labels, few = _zoo_inputs()
+    out = {}
+    for name, per_pass, heads, dim in ZOO_TOKEN_HOW:
+        preset = get_preset(name)
+        compare = (_asmk_cuda_vs_cpu if name == "how_asmk_r50"
+                   else _descriptors_close)
+        out[name], gpu_model = full_width_model(
+            torch, gh, rb, smi, "11.1", preset.model, per_pass, heads, dim,
+            imgs, labels, few, compare=compare, **preset.model_overrides)
+        del gpu_model
+        torch.cuda.empty_cache()
+    return out
+
+
+def _chunk_ms(torch, model, q, g, iters: int = 5) -> float:
+    """Median ms of ``score_from_featuremaps`` on one chunk, CUDA events
+    around each call after a warm-up."""
+    times = []
+    with torch.no_grad():
+        model.score_from_featuremaps(q, g)
+        for _ in range(iters):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            model.score_from_featuremaps(q, g)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def phase_cvnet_rerank(torch, gh, rb, smi: str) -> dict:
+    """Phase 11.2: ``cli.evaluate --model gem_r50 --multiscale
+    --cvnet-rerank --rerank-k 20`` (default ``--rerank-imsize`` 224) on
+    the phase-4 fixture as JPEG files laid out as a Revisited dataset
+    (as 9.2), a seeded gem_r50 (8 classes) and a seeded
+    ``CVNetRerank(resnet50, reduction_dim=256)`` given as ``.pt`` files.
+    Its ranks must equal the direct ``_cvnet_rerank_ranks`` on the CLI
+    run's inputs; the bottleneck launches inside the rerank must be 12
+    per feature-map pass and the head's 0.  Every shortlisted pair is
+    scored on the card and by the port's CPU scorer on the same maps:
+    scores within 1e-5, reranked order equal where the blended scores
+    differ by more than 1e-6.  Prints the mAP before and after, the
+    feature-map seconds, the scorer's ms per 16-pair chunk (CUDA events)
+    at 224 and 512 px, and the peak memory at 512."""
+    from research_image_retrieval_tpu_torch.cli import evaluate as cli_eval
+    from research_image_retrieval_tpu_torch.evaluation import (
+        compute_map_and_print,
+    )
+    from research_image_retrieval_tpu_torch.evaluation import driver
+    from research_image_retrieval_tpu_torch.index import (
+        make_cvnet_batch_scorer,
+        rerank_shortlist_batched,
+        search_topk,
+    )
+    from research_image_retrieval_tpu_torch.models import (
+        CVNetRerank,
+        get_model,
+        seeded_init,
+    )
+
+    enc = _jpeg_encoder()
+    if enc is None:
+        raise AssertionError("11.2 needs a JPEG encoder (OpenCV or PIL) to "
+                             "lay the fixture out as files")
+    work = os.path.join(ROOT, "build", "chip_smoke_cvnet")
+    shutil.rmtree(work, ignore_errors=True)
+    jdir = os.path.join(work, "fixture")
+    os.makedirs(jdir)
+    imgs, labels = serving_fixture(16, 1024)
+    names = [f"{i:03d}.jpg" for i in range(len(imgs))]
+    for name, img in zip(names, imgs):
+        with open(os.path.join(jdir, name), "wb") as f:
+            f.write(enc(img))
+    q_idx = np.arange(0, len(imgs), 8)
+    root = os.path.join(work, "revisited")
+    gnd = _revisited_layout(root, jdir, names, imgs, labels, q_idx)
+    gem_ckpt = os.path.join(work, "gem_r50_seed0.pt")
+    gem = get_model("gem_r50", num_classes=8)
+    seeded_init(gem, seed=0)
+    torch.save(gem.state_dict(), gem_ckpt)
+    cv_ckpt = os.path.join(work, "cvnet_r50_seed0.pt")
+    cv = CVNetRerank(backbone_name="resnet50", reduction_dim=256)
+    seeded_init(cv, seed=0)
+    torch.save(cv.state_dict(), cv_ckpt)
+    del gem, cv
+    out = os.path.join(work, "cvnet_rerank.json")
+
+    # the rerank's own launches, feature-map passes and seconds
+    calls, passes, inner = [], [0], {}
+    real_rerank, real_fmaps = driver._cvnet_rerank_ranks, \
+        driver.cvnet_featuremaps
+    real_load = driver.load_cvnet
+    real_pass = CVNetRerank.extract_featuremap
+
+    def counted_pass(self, img):
+        passes[0] += 1
+        return real_pass(self, img)
+
+    def timed_fmaps(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f = real_fmaps(*args, **kw)
+        torch.cuda.synchronize()
+        inner["fmap_s"] = inner.get("fmap_s", 0.0) + time.perf_counter() - t0
+        return f
+
+    def recorded(*args, **kw):
+        _reset_launches(gh, rb)
+        passes[0] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ranks = real_rerank(*args, **kw)
+        torch.cuda.synchronize()
+        inner["rerank_s"] = time.perf_counter() - t0
+        inner["launches"] = {"gem_head": gh.gem_whiten_l2.launches,
+                             "bottleneck": rb.fused_bottleneck.launches}
+        inner["passes"] = passes[0]
+        calls.append((args, ranks))
+        return ranks
+
+    driver._cvnet_rerank_ranks, driver.cvnet_featuremaps = recorded, \
+        timed_fmaps
+    CVNetRerank.extract_featuremap = counted_pass
+    t0 = time.perf_counter()
+    try:
+        cli_eval.main(["--model", "gem_r50", "--datasets", "roxford5k",
+                       "--data-root", root, "--checkpoint", gem_ckpt,
+                       "--multiscale", "--cvnet-rerank", "--rerank-k", "20",
+                       "--rerank-checkpoint", cv_ckpt, "--output", out])
+    finally:
+        driver._cvnet_rerank_ranks, driver.cvnet_featuremaps = real_rerank, \
+            real_fmaps
+        CVNetRerank.extract_featuremap = real_pass
+    cli_s = time.perf_counter() - t0
+    launches, n_pass = inner["launches"], inner["passes"]
+    if launches != {"gem_head": 0, "bottleneck": 12 * n_pass} or n_pass == 0:
+        raise AssertionError(
+            f"11.2: launches {launches} inside the rerank over {n_pass} "
+            "feature-map passes, want 12 bottleneck and 0 head per pass")
+    with open(out) as f:
+        got_map = tuple(json.load(f)["roxford5k"])
+    (qvecs, vecs, ranks_in, q_loader, db_loader, cfg, dev), ranks = calls[0]
+    # the direct run's reranker and feature maps serve the checks below
+    held = []
+    driver.load_cvnet = lambda *a: held.append(real_load(*a)) or held[-1]
+    driver.cvnet_featuremaps = lambda *a: held.append(real_fmaps(*a)) or \
+        held[-1]
+    try:
+        direct = driver._cvnet_rerank_ranks(qvecs, vecs, ranks_in, q_loader,
+                                            db_loader, cfg, "cuda")
+    finally:
+        driver.load_cvnet, driver.cvnet_featuremaps = real_load, real_fmaps
+    if not np.array_equal(direct, ranks):
+        raise AssertionError(
+            f"11.2 cli.evaluate --cvnet-rerank ranks differ from the direct "
+            f"pipeline's on {int((direct != ranks).sum())} entries")
+    before = compute_map_and_print("roxford5k", "global", "test", ranks_in,
+                                   gnd, kappas=[1, 5, 10])
+    after = compute_map_and_print("roxford5k", "global", "test", ranks, gnd,
+                                  kappas=[1, 5, 10])
+    if tuple(after) != got_map:
+        raise AssertionError(f"11.2 CLI mAP {got_map} != its ranks' {after}")
+
+    # every shortlisted pair scored on the card and on the CPU
+    model, qf, gf = held
+    k = min(cfg.rerank_k, vecs.shape[0])
+    scores, indices = search_topk(qvecs, vecs, k=k, device="cuda")
+    union = np.unique(indices)
+    qids = np.repeat(np.arange(len(qvecs)), k)
+    gids = np.searchsorted(union, indices.reshape(-1))
+    on_card = make_cvnet_batch_scorer(model, qf, gf)(qids, gids)
+    cpu_model = copy.deepcopy(model).cpu()
+    t0 = time.perf_counter()
+    on_cpu = make_cvnet_batch_scorer(cpu_model, qf.cpu(), gf.cpu())(qids,
+                                                                    gids)
+    cpu_s = time.perf_counter() - t0
+    err = check_close("11.2 CVNet pair scores cuda vs cpu",
+                      torch.from_numpy(on_card), torch.from_numpy(on_cpu),
+                      0.0, 1e-5)
+    local = np.searchsorted(union, indices)
+    card_s, card_i = rerank_shortlist_batched(
+        scores, local, lambda a, b: on_card, blend=cfg.rerank_blend)
+    cpu_sc, cpu_i = rerank_shortlist_batched(
+        scores, local, lambda a, b: on_cpu, blend=cfg.rerank_blend)
+    n_distinct = _same_ids("11.2 reranked order", card_i, cpu_i, cpu_sc)
+    del cpu_model
+
+    # the scorer per 16-pair chunk at 224 and 512 px
+    ms224 = _chunk_ms(torch, model, qf[qids[:16]], gf[gids[:16]])
+    f512 = driver.cvnet_featuremaps(model, db_loader, np.arange(32), 512)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms512 = _chunk_ms(torch, model, f512[:16], f512[16:])
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        s512 = model.score_from_featuremaps(f512[:16], f512[16:]).cpu()
+    if not (torch.isfinite(s512).all() and ((s512 >= 0) & (s512 <= 1)).all()):
+        raise AssertionError(f"11.2 scores at 512 px: {s512}")
+    print(f"zoo 11.2 cli.evaluate --model gem_r50 --multiscale --cvnet-rerank "
+          f"--rerank-k {k} on the fixture as a Revisited dataset "
+          f"({len(imgs)} images, {len(q_idx)} queries, {len(qids)} pairs, "
+          f"{cfg.rerank_imsize} px maps {tuple(qf.shape[1:])}) in "
+          f"{cli_s:.1f} s: mAP E/M/H before the rerank {tuple(before)}, "
+          f"after {tuple(after)}; ranks == the direct pipeline's; the rerank "
+          f"{inner['rerank_s']:.2f} s wall, its feature maps "
+          f"{inner['fmap_s']:.2f} s ({n_pass} passes); card vs cpu pair "
+          f"scores max|err| {err:.3e} (atol 1e-5; cpu {cpu_s:.1f} s), "
+          f"scores {on_card.min():.4f}-{on_card.max():.4f}, reranked ids "
+          f"equal on {n_distinct} distinct scores; scorer per 16-pair chunk "
+          f"{ms224:.2f} ms at 224 px, {ms512:.2f} ms at 512 px (maps "
+          f"{tuple(f512.shape[1:])}, CUDA events, median of 5), peak "
+          f"{peak / 2 ** 30:.2f} GiB at 512; launches {launches} over "
+          f"{n_pass} feature-map passes [{smi}]")
+    shutil.rmtree(work, ignore_errors=True)
+    return dict(launches=launches, passes=n_pass, before=before, after=after,
+                cli_s=cli_s, ms224=ms224, ms512=ms512, peak=peak,
+                max_abs_err=err)
 
 
 def main() -> int:
@@ -2385,6 +2725,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"zoo phase 10: {time.perf_counter() - t0:.1f} s [{smi}]")
 
+    # -- 11: Token, HOW-VLAD, HOW-ASMK and CVNet's rerank -----------------
+    t0 = time.perf_counter()
+    token_how = phase_token_how(torch, gh, rb, smi)
+    cvnet = phase_cvnet_rerank(torch, gh, rb, smi)
+    torch.cuda.empty_cache()
+    print(f"zoo phase 11: {time.perf_counter() - t0:.1f} s [{smi}]")
+
     src = "research_image_retrieval_tpu_torch/csrc/"
     replaces = {
         "gem_head": "research_image_retrieval_tpu/ops/gem_pallas.py:84",
@@ -2408,7 +2755,11 @@ def main() -> int:
                             rerank["launches"][name],
                         **{k: v["launches"][name]
                            for k, v in zoo_more.items()},
-                        "10.2 HybridGallery": gallery["launches"][name]})
+                        "10.2 HybridGallery": gallery["launches"][name],
+                        **{k: v["launches"][name]
+                           for k, v in token_how.items()},
+                        "11.2 cli.evaluate --cvnet-rerank (the rerank)":
+                            cvnet["launches"][name]})
                for name in ("gem_head", "bottleneck")]
     # the bf16 forms: their main path is a bf16 model's (7.3-bf16), its
     # extraction counted as ``launches``, its validation beside it

@@ -1,12 +1,13 @@
 """Evaluation CLI: extract + rank + Revisited protocol mAP
 (port of ``research_image_retrieval_tpu/cli/evaluate.py`` with the flags
 of what the port has: multiscale, host scales, alpha-QE, PCA whitening,
-the learned IQE, SuperGlobal and DELG's local-feature geometric
-reranking; CVNet reranking and the split DCT decode are not ported yet).
-``--iqe-checkpoint`` reads a ``.pt`` state dict or an ``.npz`` of
-flattened flax params, not orbax.  ``--model`` takes any registry or
-Table-1 name (``gem_r50``, ``dolg_r101``, ``R101-SOLAR``, ``delg_r50``
-...); ``--local-rerank`` needs a delg model.
+the learned IQE, SuperGlobal, CVNet's correlation reranking and DELG's
+local-feature geometric reranking; the split DCT decode is not ported
+yet).  ``--iqe-checkpoint`` and ``--rerank-checkpoint`` read a ``.pt``
+state dict or an ``.npz`` of flattened flax variables, not orbax.
+``--model`` takes any registry or Table-1 name (``gem_r50``,
+``dolg_r101``, ``R101-SOLAR``, ``delg_r50``, ``R101-Token`` ...);
+``--local-rerank`` needs a delg model.
 A dataset missing under ``--data-root`` falls back to the synthetic
 fixture and says so.
 
@@ -18,6 +19,10 @@ fixture and says so.
     python -m research_image_retrieval_tpu_torch.cli.evaluate \
         --model delg_r50 --datasets roxford5k --data-root /data/revisited \
         --local-rerank --rerank-k 20 [--device cpu]
+
+    python -m research_image_retrieval_tpu_torch.cli.evaluate \
+        --model gem_r50 --datasets roxford5k --data-root /data/revisited \
+        --multiscale --cvnet-rerank --rerank-checkpoint cvnet.pt
 """
 
 from __future__ import annotations
@@ -59,6 +64,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--iqe-gamma", type=float, default=0.6)
     p.add_argument("--iqe-checkpoint", default=None,
                    help=".pt state dict or .npz of flattened flax params")
+    p.add_argument("--cvnet-rerank", action="store_true",
+                   help="CVNet correlation-verification reranking of the "
+                        "top --rerank-k")
     p.add_argument("--local-rerank", action="store_true",
                    help="DELG local-feature affine-RANSAC reranking of the "
                         "top --rerank-k (needs a delg model)")
@@ -68,7 +76,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rerank-blend", type=float, default=0.5,
                    help="weight of the first-stage score in the blend")
     p.add_argument("--rerank-imsize", type=int, default=224,
-                   help="square side of the rerank's local extraction")
+                   help="square side of the rerank's images")
+    p.add_argument("--rerank-checkpoint", default=None,
+                   help="CVNet weights: .pt state dict or .npz of flattened "
+                        "flax variables (else random init, with a warning)")
     p.add_argument("--output", default=None, help="write results JSON here")
     p.add_argument("--output-csv", default=None,
                    help="write a combined CSV (dataset, easy, medium, hard)")
@@ -104,6 +115,8 @@ def main(argv=None):
         iqe_checkpoint=args.iqe_checkpoint,
         superglobal=args.superglobal,
         sg_m=args.sg_m,
+        cvnet_rerank=args.cvnet_rerank,
+        rerank_checkpoint=args.rerank_checkpoint,
         local_rerank=args.local_rerank,
         lr_top_attn=args.lr_top_attn,
         rerank_k=args.rerank_k,

@@ -2,13 +2,19 @@
 (port of ``research_image_retrieval_tpu/evaluation/driver.py``: model
 loading, ``evaluate`` and ``evaluate_synthetic`` with the JAX pipeline's
 order: PCA whitening, alpha-QE, the learned IQE or a plain rank, then
-SuperGlobal reranking, then (``evaluate``) DELG's local-feature
-geometric rerank; CVNet reranking is not ported yet).
+SuperGlobal reranking, then (``evaluate``) CVNet's correlation rerank
+and DELG's local-feature geometric rerank).
 
-The local rerank feeds the model ImageNet-normalized square images
+Both reranks feed their model ImageNet-normalized square images
 whatever the loaders yield: with ``device_scales`` the loaders yield raw
 uint8, which the JAX driver resizes and passes on un-normalized (0-255);
 the port normalizes them first, as the host-scales path's items are.
+
+The CVNet reranker's weights come from ``EvalConfig.rerank_checkpoint``
+(a ``.pt`` state dict of ``models.CVNetRerank`` or an ``.npz`` of its
+flax variables flattened with ``/`` keys; arrays whose name and shape
+match load, as JAX's ``partial_load`` merges), else from
+``seeded_init(seed=0)`` with a warning that the scores are untrained.
 
 The IQE MLP's weights come from ``EvalConfig.iqe_checkpoint``: a ``.pt``
 state dict of ``index.qe.IterativeQueryExpansion`` or an ``.npz`` of its
@@ -53,6 +59,7 @@ from research_image_retrieval_tpu_torch.index import (
     extract_vectors,
     geometric_verification_batch,
     iqe_from_flax,
+    make_cvnet_batch_scorer,
     rank_full,
     rerank_shortlist_batched,
     resize_bilinear_np,
@@ -60,6 +67,7 @@ from research_image_retrieval_tpu_torch.index import (
     superglobal_rerank,
 )
 from research_image_retrieval_tpu_torch.models import (
+    CVNetRerank,
     from_jax_variables,
     get_model,
     load_torchvision_resnet,
@@ -73,8 +81,9 @@ from research_image_retrieval_tpu_torch.ops.whiten import (
 from research_image_retrieval_tpu_torch.utils.config import EvalConfig
 from research_image_retrieval_tpu_torch.utils.device import resolve_device
 
-__all__ = ["EvalConfig", "evaluate", "evaluate_synthetic", "load_checkpoint",
-           "load_iqe", "local_features"]
+__all__ = ["EvalConfig", "cvnet_featuremaps", "evaluate",
+           "evaluate_synthetic", "load_checkpoint", "load_cvnet", "load_iqe",
+           "local_features"]
 
 
 def _unflatten(flat) -> dict:
@@ -193,6 +202,21 @@ def _splice_ranks(ranks: np.ndarray, heads: np.ndarray) -> np.ndarray:
     return ranks
 
 
+def _read_state(path: str, from_flax) -> dict:
+    """The state dict in ``path``: a ``.pt`` file (a trainer's under
+    ``"model"``) or an ``.npz`` of flax variables flattened with ``/``
+    keys, whose tree ``from_flax`` converts."""
+    if os.path.isdir(path):
+        raise ValueError(f"{path} is a directory (an orbax checkpoint?); "
+                         "the port reads a .pt state dict or an .npz of "
+                         "flax variables flattened with '/' keys")
+    if path.endswith(".npz"):
+        with np.load(path, allow_pickle=False) as flat:
+            return from_flax(_unflatten({k: flat[k] for k in flat.files}))
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return sd["model"] if isinstance(sd.get("model"), dict) else sd
+
+
 def load_iqe(cfg: EvalConfig, embed_dim: int) -> IterativeQueryExpansion:
     """The IQE module of ``cfg``: weights from ``cfg.iqe_checkpoint``
     (``.pt`` state dict, or ``.npz`` of flattened flax params), else
@@ -204,17 +228,7 @@ def load_iqe(cfg: EvalConfig, embed_dim: int) -> IterativeQueryExpansion:
             max_iterations=cfg.iqe_iterations, gamma=cfg.iqe_gamma)
     path = cfg.iqe_checkpoint
     if path:
-        if os.path.isdir(path):
-            raise ValueError(f"{path} is a directory (an orbax checkpoint?); "
-                             "the port reads a .pt state dict or an .npz of "
-                             "flax params flattened with '/' keys")
-        if path.endswith(".npz"):
-            with np.load(path, allow_pickle=False) as flat:
-                sd = iqe_from_flax(_unflatten({k: flat[k]
-                                               for k in flat.files}))
-        else:
-            sd = torch.load(path, map_location="cpu", weights_only=True)
-            sd = sd.get("model", sd)
+        sd = _read_state(path, iqe_from_flax)
         model.load_state_dict(sd)
         print(f">> IQE checkpoint {path}: {len(sd)} arrays loaded")
     else:
@@ -265,6 +279,64 @@ def _square_images(loader, idxs, size: int) -> np.ndarray:
                             IMAGENET_STD)
         out[j] = resize_bilinear_np(img, size, size)
     return out
+
+
+def load_cvnet(cfg: EvalConfig, device) -> CVNetRerank:
+    """The CVNet reranker of ``cfg`` in eval mode on ``device``: a
+    ``rerank_backbone`` encoder, ``seeded_init(seed=0)``, then every array
+    of ``cfg.rerank_checkpoint`` whose name and shape match (the loaded /
+    shape-mismatched counts printed, as JAX's ``partial_load`` reports)."""
+    model = CVNetRerank(backbone_name=cfg.rerank_backbone)
+    seeded_init(model, seed=0)
+    path = cfg.rerank_checkpoint
+    if not path:
+        print(">> WARNING: CVNet reranker running from RANDOM init "
+              "(no --rerank-checkpoint) — scores are untrained")
+    else:
+        src = _read_state(path, from_jax_variables)
+        own = model.state_dict()
+        keys = [k for k in src if k in own
+                and not k.endswith("num_batches_tracked")]
+        loaded = {k: src[k] for k in keys if src[k].shape == own[k].shape}
+        model.load_state_dict(loaded, strict=False)
+        print(f">> CVNet rerank checkpoint: {len(loaded)} arrays loaded, "
+              f"{len(keys) - len(loaded)} shape-mismatched")
+    return model.to(resolve_device(device)).eval()
+
+
+def cvnet_featuremaps(model: CVNetRerank, loader, ids,
+                      size: int) -> torch.Tensor:
+    """[len(ids), h, w, C] feature maps, on the model's device, of the
+    loader's images ``ids`` as ``size`` square images, 8 at a time."""
+    dev = next(model.parameters()).device
+    out = []
+    with torch.no_grad():
+        for lo in range(0, len(ids), 8):
+            imgs = _square_images(loader, ids[lo:lo + 8], size)
+            out.append(model.extract_featuremap(torch.from_numpy(imgs)
+                                                .to(dev)))
+    return torch.cat(out)
+
+
+def _cvnet_rerank_ranks(qvecs, vecs, ranks, q_loader, db_loader,
+                        cfg: EvalConfig, device):
+    """CVNet correlation re-verification of each query's top
+    ``rerank_k``: feature maps of the queries and of the union of
+    shortlisted gallery images, every pair scored in 16-pair chunks
+    (``make_cvnet_batch_scorer``) and blended with the first-stage
+    score, the shortlist reordered ahead of the rest."""
+    model = load_cvnet(cfg, device)
+    k = min(cfg.rerank_k, vecs.shape[0])
+    scores, indices = search_topk(qvecs, vecs, k=k, device=device)
+    q_fmaps = cvnet_featuremaps(model, q_loader, np.arange(len(qvecs)),
+                                cfg.rerank_imsize)
+    union = np.unique(indices.reshape(-1))
+    g_fmaps = cvnet_featuremaps(model, db_loader, union, cfg.rerank_imsize)
+    scorer = make_cvnet_batch_scorer(model, q_fmaps, g_fmaps)
+    _, new_local = rerank_shortlist_batched(
+        scores, np.searchsorted(union, indices), scorer,
+        blend=cfg.rerank_blend)
+    return _splice_ranks(ranks, union[new_local])
 
 
 def local_features(model, loader, ids, top: int, size: int, device):
@@ -355,6 +427,9 @@ def evaluate(cfg: EvalConfig, device="cuda") -> dict:
             if cfg.alpha_qe:
                 qvecs = _expand(qvecs, vecs, cfg, dev)
             ranks = _rank(qvecs, vecs, cfg, dev)
+            if cfg.cvnet_rerank:
+                ranks = _cvnet_rerank_ranks(qvecs, vecs, ranks, q_loader,
+                                            db_loader, cfg, dev)
             if cfg.local_rerank:
                 ranks = _local_rerank_ranks(model, qvecs, vecs, ranks,
                                             q_loader, db_loader, cfg, dev)

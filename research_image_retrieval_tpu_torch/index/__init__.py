@@ -12,6 +12,7 @@ from research_image_retrieval_tpu_torch.index.qe import (
 from research_image_retrieval_tpu_torch.index.rerank import (
     geometric_verification_batch,
     geometric_verification_score,
+    make_cvnet_batch_scorer,
     mutual_nn_matches,
     rerank_shortlist,
     rerank_shortlist_batched,
@@ -29,6 +30,7 @@ from research_image_retrieval_tpu_torch.index.superglobal import (
 __all__ = ["HybridGallery", "IterativeQueryExpansion", "alpha_query_expansion",
            "cosine_similarity", "extract_vectors", "gem_aggregate",
            "geometric_verification_batch", "geometric_verification_score",
-           "iqe_from_flax", "multiscale_descriptor", "mutual_nn_matches",
+           "iqe_from_flax", "make_cvnet_batch_scorer",
+           "multiscale_descriptor", "mutual_nn_matches",
            "rank_full", "rerank_shortlist", "rerank_shortlist_batched",
            "resize_bilinear_np", "search_topk", "superglobal_rerank"]

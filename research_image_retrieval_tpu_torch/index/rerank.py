@@ -1,10 +1,13 @@
-"""Shortlist reranking and DELG-style geometric verification
-(port of ``research_image_retrieval_tpu/index/rerank.py``; the CVNet
-scorer, ``make_cvnet_batch_scorer``, waits for CVNet).
+"""Shortlist reranking: CVNet's learned correlation verification and
+DELG-style geometric verification
+(port of ``research_image_retrieval_tpu/index/rerank.py``).
 
 * ``rerank_shortlist`` / ``rerank_shortlist_batched``: re-score each
   query's top-k with a pair scorer, blend with the first-stage score and
   reorder (numpy, stable order, as the JAX functions).
+* ``make_cvnet_batch_scorer``: a pair scorer over cached CVNet feature
+  maps, in fixed 16-pair chunks on the model's device (a tail chunk
+  padded by repeating its last pair, the padded outputs dropped).
 * ``mutual_nn_matches`` / ``geometric_verification_score``: the per-pair
   host check (mutual nearest neighbours, then affine RANSAC with
   ``lstsq``), numpy.
@@ -38,7 +41,7 @@ import torch
 from research_image_retrieval_tpu_torch.utils.device import resolve_device
 
 __all__ = ["geometric_verification_batch", "geometric_verification_score",
-           "mutual_nn_matches", "rerank_shortlist",
+           "make_cvnet_batch_scorer", "mutual_nn_matches", "rerank_shortlist",
            "rerank_shortlist_batched"]
 
 
@@ -74,6 +77,37 @@ def rerank_shortlist_batched(scores: np.ndarray, indices: np.ndarray,
     order = np.argsort(-combined, axis=1, kind="stable")
     return (np.take_along_axis(combined, order, axis=1),
             np.take_along_axis(indices, order, axis=1))
+
+
+def make_cvnet_batch_scorer(model, q_fmaps, g_fmaps, chunk: int = 16):
+    """``batch_scorer(query_ids [P], gallery_ids [P]) -> [P]`` match
+    scores for ``rerank_shortlist_batched``: ``model`` (a
+    ``CVNetRerank`` in eval mode) scores the pairs of cached feature maps
+    ``q_fmaps`` [Q, H, W, C] / ``g_fmaps`` [N, H', W', C] (arrays or
+    tensors, moved once to the model's device) ``chunk`` pairs at a
+    time."""
+    dev = next(model.parameters()).device
+    q_fmaps = torch.as_tensor(q_fmaps).to(dev)
+    g_fmaps = torch.as_tensor(g_fmaps).to(dev)
+
+    def scorer(qids, gids):
+        qids = np.asarray(qids)
+        gids = np.asarray(gids)
+        out = np.empty((len(qids),), np.float32)
+        with torch.no_grad():
+            for s in range(0, len(qids), chunk):
+                qc, gc = qids[s:s + chunk], gids[s:s + chunk]
+                n = len(qc)
+                if n < chunk:  # pad to the chunk's shape
+                    qc = np.concatenate([qc, np.repeat(qc[-1:], chunk - n)])
+                    gc = np.concatenate([gc, np.repeat(gc[-1:], chunk - n)])
+                got = model.score_from_featuremaps(
+                    q_fmaps[torch.from_numpy(qc).to(dev)],
+                    g_fmaps[torch.from_numpy(gc).to(dev)])
+                out[s:s + n] = got[:n].cpu().numpy()
+        return out
+
+    return scorer
 
 
 def mutual_nn_matches(desc_a: np.ndarray, desc_b: np.ndarray,

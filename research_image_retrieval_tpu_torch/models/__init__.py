@@ -22,9 +22,15 @@ from research_image_retrieval_tpu_torch.models.convert import (
     seeded_init,
     training_init,
 )
+from research_image_retrieval_tpu_torch.models.cvnet import (
+    CenterPivotConv4d,
+    CVLearner,
+    CVNetRerank,
+)
 from research_image_retrieval_tpu_torch.models.delg import DELGModel
 from research_image_retrieval_tpu_torch.models.dolg import DOLGModel
 from research_image_retrieval_tpu_torch.models.gem import GeMModel
+from research_image_retrieval_tpu_torch.models.how import HOWModel
 from research_image_retrieval_tpu_torch.models.layers import (
     Attention,
     Decoder,
@@ -47,6 +53,10 @@ from research_image_retrieval_tpu_torch.models.solar import SOLARModel
 from research_image_retrieval_tpu_torch.models.sosnet import SoSNetModel
 from research_image_retrieval_tpu_torch.models.spca import SpCaModel
 from research_image_retrieval_tpu_torch.models.spoc import SpoCModel
+from research_image_retrieval_tpu_torch.models.token import (
+    TokenModel,
+    TokenRefine,
+)
 
 __all__ = [
     "AdaptiveHybridModel",
@@ -54,12 +64,16 @@ __all__ = [
     "BasicBlock",
     "BatchNorm",
     "BottleneckBlock",
+    "CVLearner",
+    "CVNetRerank",
+    "CenterPivotConv4d",
     "DELGModel",
     "DOLGModel",
     "Decoder",
     "DropPath",
     "Encoder",
     "GeMModel",
+    "HOWModel",
     "LayerNorm",
     "MODEL_REGISTRY",
     "Mlp",
@@ -73,6 +87,8 @@ __all__ = [
     "SpoCModel",
     "TABLE1_TO_MODEL_MAPPING",
     "TokenBatchNorm",
+    "TokenModel",
+    "TokenRefine",
     "contrastive_loss",
     "from_jax_variables",
     "get_model",

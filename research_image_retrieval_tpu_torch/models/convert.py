@@ -2,7 +2,8 @@
 
 * ``from_jax_variables``: flax ``{"params", "batch_stats"}`` of the JAX
   ``ResNet``, of a model over one (``params["backbone"]``: the GeM,
-  DOLG, SOLAR, DELG, SpCa, SoSNet, SpoC and AdaptiveHybrid models) or of
+  DOLG, SOLAR, DELG, SpCa, SoSNet, SpoC, AdaptiveHybrid, Token and HOW
+  models; ``params["encoder"]``: ``CVNetRerank``) or of
   ``SENetG2Model`` (no backbone subtree; its own ``conv1``, ``bn1`` and
   ``layer{i}_{j}`` at the top level); numpy arrays -> the port's state
   dict.  The inverse of the JAX ``convert_torch_resnet`` for the
@@ -123,18 +124,21 @@ def _flatten_name_scopes(tree: dict) -> dict:
 
 def from_jax_variables(variables: dict) -> dict:
     """Port state dict from flax variables of ``ResNet``, of a model
-    whose backbone is one (``params["backbone"]``) or of a model with
-    its own layers at the top level (``SENetG2Model``)."""
+    whose backbone is one (``params["backbone"]``, or CVNet's
+    ``params["encoder"]``) or of a model with its own layers at the top
+    level (``SENetG2Model``).  The ``model_state`` collection
+    (RetrievalNet's ``arcface_t``) becomes buffers of the same names."""
     params = _flatten_name_scopes(variables["params"])
     stats = _flatten_name_scopes(variables.get("batch_stats", {}))
-    if "backbone" not in params:
+    sd = {k: _t(v) for k, v in variables.get("model_state", {}).items()}
+    trunk = next((k for k in ("backbone", "encoder") if k in params), None)
+    if trunk is None:
         if all(re.fullmatch(r"conv1|bn1|layer\d+_\d+", k) for k in params):
             return _resnet_from_flax(params, stats, "")  # a bare ResNet
-        sd = {}
         _heads_from_flax(params, stats, "", sd)
         return sd
-    sd = _resnet_from_flax(params["backbone"], stats["backbone"], "backbone.")
-    _heads_from_flax({k: v for k, v in params.items() if k != "backbone"},
+    sd.update(_resnet_from_flax(params[trunk], stats[trunk], f"{trunk}."))
+    _heads_from_flax({k: v for k, v in params.items() if k != trunk},
                      stats, "", sd)
     return sd
 
@@ -214,19 +218,21 @@ def seeded_init(module: nn.Module, seed: int) -> None:
     weight 1 + 0.1 N, BN bias and running mean 0.1 N, running var
     |N| + 0.5, other vectors 0.1 N.  Parameters a log or a square root
     reads (SpCa's ``pi`` and ``cov``) get |N| + 0.5, G2+'s ``g2_alpha``
-    1 + 0.1 N; a learnable GeM ``gem_p`` keeps its value."""
+    and ASMK's cluster ``weights`` 1 + 0.1 N; a learnable GeM ``gem_p``
+    and RetrievalNet's EMA state ``arcface_t`` keep their values."""
     gen = torch.Generator().manual_seed(seed)
     sd = module.state_dict()
     with torch.no_grad():
         for k in sorted(sd):
             t = sd[k]
-            if k.endswith("num_batches_tracked") or k == "gem_p":
+            if k.endswith("num_batches_tracked") or k in ("gem_p",
+                                                          "arcface_t"):
                 continue
             v = torch.randn(tuple(t.shape), generator=gen, dtype=torch.float32)
             leaf = k.rsplit(".", 1)[-1]
             if leaf in ("running_var", "pi", "cov"):
                 v = v.abs() + 0.5
-            elif leaf == "g2_alpha":
+            elif leaf in ("g2_alpha", "weights"):
                 v = 1.0 + 0.1 * v
             elif t.dim() > 1:
                 v = v / math.sqrt(max(int(np.prod(t.shape[1:])), 1))
@@ -245,7 +251,8 @@ def training_init(module: nn.Module, generator: torch.Generator) -> None:
     ``zero_init`` (SOLAR's ``v``, ``Attention.proj``) all zeros; BN and
     LayerNorm scale 1, bias 0, BN running mean 0, running variance 1; a
     ``classifier_w`` xavier-uniform; a module's own parameters by its
-    ``reset_flax(generator)`` (SpCa's codebook, G2+'s affine).  A
+    ``reset_flax(generator)`` (SpCa's codebook, G2+'s affine, Token's
+    queries, HOW's centroids and ASMK weights, CVNet's GroupNorms).  A
     learnable GeM ``gem_p`` keeps its value.  torch's default conv init
     (kaiming-uniform, a = sqrt(5)) has a third of this variance and is
     not used.

@@ -80,13 +80,17 @@ def _to_device(images, labels, device):
     return x, y
 
 
-def _takes_generator(model: nn.Module) -> bool:
-    """Whether ``model``, or the module a DDP or ``torch.compile`` wrapper
-    holds, draws its dropout from a per-step generator: such a model
-    declares ``takes_generator = True``."""
+def _unwrapped(model: nn.Module) -> nn.Module:
+    """The module a DDP or ``torch.compile`` wrapper holds, or ``model``."""
     for attr in ("module", "_orig_mod"):
         model = getattr(model, attr, model)
-    return bool(getattr(model, "takes_generator", False))
+    return model
+
+
+def _takes_generator(model: nn.Module) -> bool:
+    """Whether ``model`` draws its dropout from a per-step generator:
+    such a model declares ``takes_generator = True``."""
+    return bool(getattr(_unwrapped(model), "takes_generator", False))
 
 
 def make_train_step(input_norm=None):
@@ -95,7 +99,10 @@ def make_train_step(input_norm=None):
     ``input_norm=(mean, std)``; one forward, backward and optimizer step,
     fp32 with TF32 off throughout except a bf16 model's backbone.  ``metrics`` are device scalars:
     ``loss``, ``top1_err``, ``top5_err`` and ``grad_norm`` (raw gradients,
-    before clipping).  The state is updated in place and returned."""
+    before clipping).  A model whose train forward returns a third value,
+    ``{buffer name: new value}`` (RetrievalNet's ``arcface_t``, the JAX
+    step's ``model_state``), has those buffers written after the update.
+    The state is updated in place and returned."""
     prep = fused_input_norm(input_norm)
 
     def step_fn(state: TrainState, images, labels):
@@ -112,9 +119,12 @@ def make_train_step(input_norm=None):
         model.train()
         with fp32_precision():
             opt.zero_grad()
-            loss, logits = model(prep(x), y, train=True, **kw)
+            loss, logits, *model_state = model(prep(x), y, train=True, **kw)
             loss.backward()
             grad_norm = opt.step()
+        with torch.no_grad():
+            for name, value in (model_state[0] if model_state else {}).items():
+                _unwrapped(model).get_buffer(name).copy_(value)
         e1, e5 = topk_errors(logits.detach(), y, ks=(1, 5))
         state.step += 1
         return state, {"loss": loss.detach(), "top1_err": e1,

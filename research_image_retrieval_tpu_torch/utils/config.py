@@ -1,10 +1,11 @@
 """Training and evaluation settings (port of
 ``research_image_retrieval_tpu/utils/config.py``): ``TrainConfig`` with
 the JAX fields and defaults plus ``device``, the presets of the families
-the port has (``gem_r50``, ``gem_r101``, ``spca_r101``, ``dolg_r101``,
-``solar_r101``, ``delg_r50``, ``sosnet_r50``, ``spoc_r50``,
-``senet_g2_r50``, ``adaptive_hybrid_r50``), and ``EvalConfig`` with the fields that the ported
-evaluation driver and ``cli.evaluate`` read.
+the port has (``gem_r50``, ``gem_r101``, ``token_r101``, ``spca_r101``,
+``dolg_r101``, ``solar_r101``, ``delg_r50``, ``how_vlad_r50``,
+``how_asmk_r50``, ``sosnet_r50``, ``spoc_r50``, ``senet_g2_r50``,
+``adaptive_hybrid_r50``), and ``EvalConfig`` with the fields that the
+ported evaluation driver and ``cli.evaluate`` read.
 """
 
 from __future__ import annotations
@@ -128,6 +129,14 @@ class EvalConfig:
     # SuperGlobal-style global-feature reranking (index/superglobal.py)
     superglobal: bool = False
     sg_m: int = 100  # shortlist size to refine
+    # CVNet correlation-verification reranking of the top rerank_k
+    # (models/cvnet.py + index/rerank.make_cvnet_batch_scorer): feature
+    # maps of rerank_imsize square images from a rerank_backbone encoder;
+    # weights from rerank_checkpoint (.pt or flattened-flax .npz), else
+    # seeded random ones (a warning says so)
+    cvnet_rerank: bool = False
+    rerank_backbone: str = "resnet50"
+    rerank_checkpoint: str | None = None
     # DELG local-feature geometric (affine-RANSAC) reranking of the top
     # rerank_k (index/rerank.py): needs a model with extract_local (the
     # delg family); locals from rerank_imsize square images, the
@@ -148,6 +157,9 @@ PRESETS: dict[str, dict[str, Any]] = {
         model_overrides=dict(s=32.0, m=0.15),
     ),
     "gem_r101": dict(model="gem_r101", optimizer="sgd", base_lr=0.01),
+    "token_r101": dict(
+        model="token_r101", optimizer="sgd", base_lr=0.01,
+    ),
     "spca_r101": dict(
         # reference spca_training_example.sh + config/meta.yml defaults
         model="spca_r101", optimizer="sgd", base_lr=0.01,
@@ -160,6 +172,8 @@ PRESETS: dict[str, dict[str, Any]] = {
     ),
     "solar_r101": dict(model="solar_r101", optimizer="sgd", base_lr=0.01),
     "delg_r50": dict(model="delg_r50", optimizer="adamw", base_lr=1e-3),
+    "how_vlad_r50": dict(model="how_vlad_r50", optimizer="adamw", base_lr=1e-3),
+    "how_asmk_r50": dict(model="how_asmk_r50", optimizer="adamw", base_lr=1e-3),
     "sosnet_r50": dict(model="sosnet_r50", optimizer="adamw", base_lr=1e-3),
     "spoc_r50": dict(model="spoc_r50", optimizer="sgd", base_lr=0.01),
     "senet_g2_r50": dict(model="senet_g2_r50", optimizer="sgd", base_lr=0.01),

@@ -303,7 +303,9 @@ def test_registry_and_presets_match_jax():
     names = ("gem_r50", "gem_r101", "dolg_r50", "dolg_r101",
              "dolg_r101_scratch", "solar_r50", "solar_r101", "delg_r50",
              "delg_r101", "spca_r50", "spca_r101", "sosnet_r50", "spoc_r50",
-             "senet_g2_r50", "adaptive_hybrid_r50")
+             "senet_g2_r50", "adaptive_hybrid_r50", "token_r101",
+             "token_r50", "retrievalnet_r101", "how_vlad_r50",
+             "how_asmk_r50")
     assert set(tmodels.list_available_models()) == set(names)
     for n in names:
         assert tmodels.get_model_info(n) == jmodels.get_model_info(n), n
