@@ -74,7 +74,19 @@ Phases (any failure raises and exits non-zero; there is no fallback):
      against the direct pipeline's, 12 bottleneck launches per feature-map
      pass, every shortlisted pair's score on the card against the CPU's,
      the scorer's time per 16-pair chunk at 224 and 512 px and its peak
-     memory at 512.
+     memory at 512;
+ 12. the transformer step: 12.1 ultron_s, vit_b16, clip_vit_b32 and
+     clip_r50 as phase 9.1, extents snapped to each model's
+     ``extent_multiple`` (32, 16, 32, 1), with the peak memory above
+     what was allocated before (bottleneck / head launches per tower pass 0 / 0 but clip_r50's
+     12 / 0; ULTRON's CUDA-vs-CPU check allows a CDConv rate to differ
+     only next to a threshold, each printed); 12.2 ``cli.evaluate --model
+     ultron_s`` and ``cli.extract --model clip_r50`` on the fixture as a
+     Revisited dataset against the direct pipeline, the extents the model
+     saw printed, and ``ImageExtractor`` answering an image query with
+     vit_b16 through its multiple 16.
+Every zoo phase's CUDA-vs-CPU comparison runs its two images in batches
+of two (no all-padding rows).
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Needs a CUDA device and the repo.
 """
@@ -83,6 +95,7 @@ from __future__ import annotations
 
 import collections
 import copy
+import functools
 import json
 import math
 import os
@@ -284,9 +297,10 @@ def serving_fixture(num_classes: int, image_size: int):
 
 
 def serving_slice(model, imgs, labels, scales, bucket: int, k: int,
-                  device: str) -> dict:
+                  device: str, extent_multiple: int = 1) -> dict:
     """The serving path on ``device``: raw uint8 images normalised and
-    resized on the device (``extract_vectors``), the full ranking
+    resized on the device (``extract_vectors``, extents snapped to the
+    model's ``extent_multiple``), the full ranking
     (``rank_full``), each query's top-``k`` (``streaming_topk``, exact),
     and the Revisited E/M/H mAP (the first image of each class of 8 is a
     query).  Raises unless the descriptors are finite unit vectors and
@@ -312,7 +326,7 @@ def serving_slice(model, imgs, labels, scales, bucket: int, k: int,
     vecs = extract_vectors(lambda x, v: model.extract(x, v), imgs,
                            scales=scales, bucket=bucket, device_scales=True,
                            input_norm=(IMAGENET_MEAN, IMAGENET_STD),
-                           device=device)
+                           extent_multiple=extent_multiple, device=device)
     extract_s = time.perf_counter() - t0  # ends in the host readback
     if vecs.shape[0] != len(imgs) or not np.isfinite(vecs).all():
         raise AssertionError(f"descriptors: shape {vecs.shape}, finite "
@@ -765,6 +779,16 @@ def _jpeg_encoder():
 def _reset_launches(gh, rb):
     gh.gem_whiten_l2.launches = 0
     rb.fused_bottleneck.launches = 0
+
+
+def _no_launches(gh, rb, what: str) -> dict:
+    """The counts since ``_reset_launches``, for a run whose model has no
+    block of either kernel's function: raises unless both are 0."""
+    counts = {"gem_head": gh.gem_whiten_l2.launches,
+              "bottleneck": rb.fused_bottleneck.launches}
+    if any(counts.values()):
+        raise AssertionError(f"{what}: launches {counts}, want none")
+    return counts
 
 
 def _read_launches(gh, rb, step: str) -> dict:
@@ -1897,28 +1921,37 @@ def _descriptors_close(torch, what, run, gpu_model, cpu_model) -> float:
 
 def full_width_model(torch, gh, rb, smi: str, label: str, name: str,
                      per_pass: int, heads: int, dim: int, imgs, labels,
-                     few, compare=_descriptors_close, **overrides):
+                     few, compare=_descriptors_close, prepare=None,
+                     **overrides):
     """One zoo preset at full width and depth, seeded weights
     (``seeded_init(seed=0)``, 8 classes): CUDA against the port's CPU
-    path on the two images ``few`` (ms3, bucket 128) by ``compare`` (the
-    descriptors at 1e-4); the phase-4 fixture through ``serving_slice``
-    twice (the second run warm: img/s on the host clock), its mAP and
-    descriptor width; and each kernel's launches over that run against
-    the backbone passes it made (a forward hook on ``backbone``, or on
-    the stem's ``conv1`` of a model without one).  Returns (results, the
-    model on the card)."""
+    path on the two images ``few`` (ms3, bucket 128, batches of 2) by
+    ``compare`` (the descriptors at 1e-4); the phase-4 fixture through
+    ``serving_slice`` twice (the second run warm: img/s on the host
+    clock, and the peak memory above what was allocated before it: the
+    model's and earlier phases' tensors), its mAP and descriptor width;
+    and each kernel's launches over that run against the backbone passes
+    it made
+    (a forward hook on ``backbone``, on CLIP's ``visual`` tower, or on
+    the stem's ``conv1`` of a model without either).  Every extraction
+    snaps extents to the model's ``extent_multiple`` (1 for a ResNet).
+    ``prepare(torch, model)`` runs on the seeded CPU model first.
+    Returns (results, the model on the card)."""
     from research_image_retrieval_tpu_torch.index import extract_vectors
     from research_image_retrieval_tpu_torch.models import (
         get_model,
         seeded_init,
     )
 
-    kw = dict(scales=SCALES, bucket=128, batch_size=8, device_scales=True,
-              antialias=False)
     cpu_model = get_model(name, num_classes=8, **overrides)
     seeded_init(cpu_model, seed=0)
+    if prepare is not None:
+        prepare(torch, cpu_model)
     cpu_model.eval()
     gpu_model = copy.deepcopy(cpu_model).cuda().eval()
+    multiple = int(getattr(cpu_model, "extent_multiple", 1))
+    kw = dict(scales=SCALES, bucket=128, batch_size=2, device_scales=True,
+              antialias=False, extent_multiple=multiple)
 
     def run(model, device):
         return extract_vectors(lambda x, v: model.extract(x, v), few,
@@ -1929,16 +1962,20 @@ def full_width_model(torch, gh, rb, smi: str, label: str, name: str,
     cpu_s = time.perf_counter() - t0
     del cpu_model
     passes = [0]
-    stem = (gpu_model.backbone if hasattr(gpu_model, "backbone")
-            else gpu_model.conv1)
+    stem = next(getattr(gpu_model, a) for a in ("backbone", "visual", "conv1")
+                if hasattr(gpu_model, a))
     hook = stem.register_forward_hook(
         lambda *a: passes.__setitem__(0, passes[0] + 1))
     serving_slice(gpu_model, imgs, labels, SCALES, bucket=128, k=100,
-                  device="cuda")  # warm: cuDNN plans of every bucket
+                  device="cuda", extent_multiple=multiple)  # warm: plans
     passes[0] = 0
     _reset_launches(gh, rb)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # earlier phases' and the model's
     res = serving_slice(gpu_model, imgs, labels, SCALES, bucket=128, k=100,
-                        device="cuda")
+                        device="cuda", extent_multiple=multiple)
+    peak = torch.cuda.max_memory_allocated() - held
     launches = {"gem_head": gh.gem_whiten_l2.launches,
                 "bottleneck": rb.fused_bottleneck.launches}
     hook.remove()
@@ -1952,15 +1989,17 @@ def full_width_model(torch, gh, rb, smi: str, label: str, name: str,
         raise AssertionError(f"{label} {name}: descriptors "
                              f"{res['vecs'].shape}, want D = {dim}")
     img_s = len(imgs) / res["extract_s"]
-    print(f"zoo {label} {name}: cuda vs cpu (2 images, ms3, bucket 128) "
-          f"max|err| {err:.3e} (atol 1e-4; check {cpu_s:.1f} s); fixture "
-          f"{len(imgs)} images at 1024 px ms3 warm: "
-          f"{res['extract_s']:.2f} s = {img_s:.2f} img/s (host clock); "
-          f"mAP E/M/H {res['mAP']}; D {dim}; launches {launches} over "
-          f"{passes[0]} backbone passes ({per_pass} bottleneck, {heads} "
-          f"head per pass) [{smi}]")
+    print(f"zoo {label} {name}: cuda vs cpu (2 images, ms3, bucket 128, "
+          f"extent multiple {multiple}) max|err| {err:.3e} (atol 1e-4; "
+          f"check {cpu_s:.1f} s); fixture {len(imgs)} images at 1024 px ms3 "
+          f"warm: {res['extract_s']:.2f} s = {img_s:.2f} img/s (host "
+          f"clock), peak {peak / 2 ** 30:.2f} GiB above the "
+          f"{held / 2 ** 30:.2f} GiB held before; mAP E/M/H {res['mAP']}; "
+          f"D {dim}; launches {launches} over {passes[0]} backbone passes "
+          f"({per_pass} bottleneck, {heads} head per pass) [{smi}]")
     return dict(launches=launches, passes=passes[0], img_s=img_s,
-                mAP=res["mAP"], max_abs_err=err), gpu_model
+                mAP=res["mAP"], max_abs_err=err, peak=peak, held=held), \
+        gpu_model
 
 
 def _zoo_inputs():
@@ -2557,6 +2596,370 @@ def phase_cvnet_rerank(torch, gh, rb, smi: str) -> dict:
                 max_abs_err=err)
 
 
+# model, bottleneck / head launches per pass, D
+ZOO_TRANSFORMER = (("ultron_s", 0, 0, 512), ("vit_b16", 0, 0, 768),
+                   ("clip_vit_b32", 0, 0, 512), ("clip_r50", 12, 0, 1024))
+NEAR_TAU = 1e-6  # a CDConv rate may differ only this near a threshold
+
+
+def _cdconv_cuda_vs_cpu(torch, what, run, gpu_model, cpu_model) -> float:
+    """ULTRON's CUDA-vs-CPU check.  CDConv's dilation rates are a step
+    function of its channel attention, so each ``dilation_rates`` call of
+    ``run`` (one per CDConv, batch and scale, in the same order on both
+    devices) is recorded: the card's rates, then the CPU's own, while the
+    CPU run goes on at the card's rates (the same run where none
+    differs), so that a difference at one CDConv does not carry into the
+    next.  A channel's rate may differ only where its CPU attention lies
+    within ``NEAR_TAU`` of ``tau1`` or ``tau2`` (each such channel
+    printed); any other difference fails.  Every call's attentions are
+    held at 1e-5 and the descriptors at 1e-4.  Returns the largest error
+    held."""
+    from research_image_retrieval_tpu_torch.models import ultron
+
+    real = ultron.dilation_rates
+    card, cpu = [], []
+
+    def code(rates):
+        return (rates[1].long() + 2 * rates[2].long()).cpu()
+
+    def on_card(attn, tau1, tau2):
+        rates = real(attn, tau1, tau2)
+        card.append((attn.detach().cpu().double(), code(rates)))
+        return rates
+
+    def on_cpu(attn, tau1, tau2):
+        cpu.append((attn.detach().double(), tau1, tau2,
+                    code(real(attn, tau1, tau2))))
+        if len(cpu) > len(card):
+            raise AssertionError(f"{what}: more CDConv calls on the CPU "
+                                 f"than the card's {len(card)}")
+        forced = card[len(cpu) - 1][1]
+        return forced == 0, forced == 1, forced == 2
+
+    desc = {}
+    for key, dev, model, rec in (("card", "cuda", gpu_model, on_card),
+                                 ("cpu", "cpu", cpu_model, on_cpu)):
+        ultron.dilation_rates = rec
+        try:
+            desc[key] = run(model, dev)
+        finally:
+            ultron.dilation_rates = real
+    if len(card) != len(cpu) or not cpu:
+        raise AssertionError(f"{what}: {len(card)} CDConv calls on the "
+                             f"card, {len(cpu)} on the CPU")
+    err, flips, channels = 0.0, 0, 0
+    for i, ((a_card, r_card), (a_cpu, tau1, tau2, r_cpu)) in enumerate(
+            zip(card, cpu)):
+        channels += a_cpu.numel()
+        err = max(err, check_close(f"{what} CDConv attention (call {i})",
+                                   a_card, a_cpu, 0.0, 1e-5))
+        for b, ch in zip(*np.nonzero((r_card != r_cpu).numpy())):
+            v = float(a_cpu[b, ch])
+            near = min(abs(v - tau1), abs(v - tau2))
+            print(f"{what} CDConv call {i} image {b} channel {ch}: rate "
+                  f"{int(r_card[b, ch])} / {int(r_cpu[b, ch])} (card / "
+                  f"cpu), attention card {float(a_card[b, ch]):.9f} cpu "
+                  f"{v:.9f}, {near:.3e} from a threshold")
+            if near >= NEAR_TAU:
+                raise AssertionError(f"{what}: a CDConv rate differs "
+                                     f"{near:.3e} from a threshold")
+            flips += 1
+    err = max(err, check_close(
+        f"{what} cuda vs cpu", torch.from_numpy(desc["card"]),
+        torch.from_numpy(desc["cpu"]), 0.0, 1e-4))
+    print(f"{what}: {len(cpu)} CDConv calls, {channels} channel rates, "
+          f"{flips} near-threshold differences; descriptors held at 1e-4 "
+          "(the CPU at the card's rates)")
+    return err
+
+
+def _calibrate_bn(torch, model):
+    """Every BN's running statistics set to one seeded batch's (a
+    train-mode backbone pass at momentum 1 over 4 normal 128 x 160 images,
+    on the CPU).  ULTRON-S's seeded statistics normalize nothing: its
+    SCALA stage's residual stream doubles per block (|x| ~ 300 after
+    stage 2), the window and pooling softmaxes saturate, and float32
+    alone moves its descriptors ~4e-4 from float64 on the CPU; calibrated,
+    ~3e-6, below the 1e-4 bar the card is held to."""
+    from research_image_retrieval_tpu_torch.models import BatchNorm
+
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    saved = [m.momentum for m in bns]
+    for m in bns:
+        m.momentum = 1.0
+    x = torch.randn(4, 128, 160, 3, generator=torch.Generator().manual_seed(1))
+    model.train()
+    with torch.no_grad():
+        model.backbone(x)
+    for m, mo in zip(bns, saved):
+        m.momentum = mo
+    model.eval()
+
+
+def phase_transformers(torch, gh, rb, smi: str):
+    """Phase 12.1: the transformer step of the zoo at full width and depth
+    through ``full_width_model``, seeded weights: ultron_s (MadaCos head;
+    extents snapped to 32), vit_b16 (16), clip_vit_b32 (32) and clip_r50
+    (1: its ModifiedResNet takes any extents), 12 bottleneck launches per
+    clip_r50 tower pass (layers (3, 4, 6, 3) less the four projection
+    blocks) and none elsewhere; no model pools with the head's function.
+    ULTRON's BN statistics are calibrated on a seeded batch
+    (``_calibrate_bn``) and its CUDA-vs-CPU check allows CDConv rates to
+    differ only next to a threshold (``_cdconv_cuda_vs_cpu``).  Returns
+    the results and the ultron_s, vit_b16 and clip_r50 on the card for
+    12.2."""
+    imgs, labels, few = _zoo_inputs()
+    out, keep = {}, {}
+    for name, per_pass, heads, dim in ZOO_TRANSFORMER:
+        ultron = name.startswith("ultron")
+        out[name], gpu_model = full_width_model(
+            torch, gh, rb, smi, "12.1", name, per_pass, heads, dim, imgs,
+            labels, few,
+            compare=_cdconv_cuda_vs_cpu if ultron else _descriptors_close,
+            prepare=_calibrate_bn if ultron else None)
+        if name != "clip_vit_b32":
+            keep[name] = gpu_model
+        del gpu_model
+        torch.cuda.empty_cache()
+    return out, keep
+
+
+def _fixture_as_revisited(work: str):
+    """The phase-4 fixture as JPEG files laid out as a Revisited dataset
+    under ``work`` (as 9.2 and 11.2): (data root, images, query ids)."""
+    enc = _jpeg_encoder()
+    if enc is None:
+        raise AssertionError("12.2 needs a JPEG encoder (OpenCV or PIL) to "
+                             "lay the fixture out as files")
+    shutil.rmtree(work, ignore_errors=True)
+    jdir = os.path.join(work, "fixture")
+    os.makedirs(jdir)
+    imgs, labels = serving_fixture(16, 1024)
+    names = [f"{i:03d}.jpg" for i in range(len(imgs))]
+    for name, img in zip(names, imgs):
+        with open(os.path.join(jdir, name), "wb") as f:
+            f.write(enc(img))
+    q_idx = np.arange(0, len(imgs), 8)
+    root = os.path.join(work, "revisited")
+    _revisited_layout(root, jdir, names, imgs, labels, q_idx)
+    return root, imgs, q_idx
+
+
+def _extents_seen(cls, calls: list):
+    """Record the [B, 2] extents of every ``extract`` call of a model
+    class's instances; returns a function that restores it.  The wrapper
+    keeps ``extract``'s signature, which the driver's probe reads."""
+    real = cls.extract
+
+    @functools.wraps(real)
+    def wrapped(self, x, valid_hw=None):
+        if valid_hw is not None:
+            calls.append(valid_hw.detach().cpu().numpy().copy())
+        return real(self, x, valid_hw)
+
+    cls.extract = wrapped
+    return lambda: setattr(cls, "extract", real)
+
+
+def phase_transformer_entry_points(torch, gh, rb, smi: str,
+                                   models: dict) -> dict:
+    """Phase 12.2: the entry points pass the model's grid multiple.
+    ``cli.evaluate --model ultron_s --multiscale`` on the fixture laid
+    out as a Revisited dataset (12.1's seeded ultron_s as a ``.pt``): the
+    driver hands ``extract_vectors`` the multiple 32, every extent the
+    model sees is a multiple of 32 (a sample printed beside the images'
+    own sizes), and its descriptors and ranks equal the direct
+    pipeline's (the CLI's loaders through ``extract_vectors`` and
+    ``rank_full`` with 12.1's model).  ``cli.extract --model clip_r50
+    --dataset roxford5k --multiscale``: its descriptors equal the direct
+    pipeline's at 1e-6 and so do their ranks, with 12 bottleneck launches
+    per tower pass.  ``ImageExtractor`` with vit_b16 answers one image
+    query through the service's multiple 16, equal to the direct
+    extraction at 1e-6."""
+    from research_image_retrieval_tpu_torch.cli import evaluate as cli_eval
+    from research_image_retrieval_tpu_torch.cli import extract as cli_extract
+    from research_image_retrieval_tpu_torch.data import (
+        IMAGENET_MEAN,
+        IMAGENET_STD,
+    )
+    from research_image_retrieval_tpu_torch.data.transforms import imthumbnail
+    from research_image_retrieval_tpu_torch import index as index_pkg
+    from research_image_retrieval_tpu_torch.evaluation import driver
+    from research_image_retrieval_tpu_torch.index import (
+        extract_vectors,
+        rank_full,
+    )
+    from research_image_retrieval_tpu_torch.models import (
+        ModifiedResNet,
+        ULTRONRetrievalModel,
+    )
+    from research_image_retrieval_tpu_torch.serve import ImageExtractor
+
+    norm = (IMAGENET_MEAN, IMAGENET_STD)
+    work = os.path.join(ROOT, "build", "chip_smoke_transformer")
+    root, imgs, q_idx = _fixture_as_revisited(work)
+    ckpts = {}
+    for name, model in models.items():
+        ckpts[name] = os.path.join(work, f"{name}_seed0.pt")
+        torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+                   ckpts[name])
+    out = {}
+
+    # -- cli.evaluate --model ultron_s --------------------------------------
+    ev_calls, rank_calls, seen = [], [], []
+    real_ev = driver.extract_vectors
+
+    def ev(*args, **kw):
+        ev_calls.append((args, kw))
+        return real_ev(*args, **kw)
+
+    driver.extract_vectors = ev
+    restore = [_recorded(driver, "_rank", rank_calls),
+               _extents_seen(ULTRONRetrievalModel, seen)]
+    _reset_launches(gh, rb)
+    t0 = time.perf_counter()
+    try:
+        cli_eval.main(["--model", "ultron_s", "--datasets", "roxford5k",
+                       "--data-root", root, "--checkpoint",
+                       ckpts["ultron_s"], "--multiscale", "--output",
+                       os.path.join(work, "ultron.json")])
+    finally:
+        driver.extract_vectors = real_ev
+        for r in restore:
+            r()
+    cli_s = time.perf_counter() - t0
+    launches = _no_launches(gh, rb, "12.2 cli.evaluate --model ultron_s")
+    mults = [kw.get("extent_multiple") for _, kw in ev_calls]
+    if mults != [32, 32] or len(rank_calls) != 1:
+        raise AssertionError(f"12.2 cli.evaluate: extent multiples {mults}, "
+                             f"{len(rank_calls)} rankings")
+    ext = np.concatenate(seen)
+    if (ext % 32).any():
+        raise AssertionError("12.2 cli.evaluate --model ultron_s: extents "
+                             f"{ext[(ext % 32).any(axis=1)][:4]} are not "
+                             "multiples of 32")
+    (qvecs, vecs, _, _), ranks = rank_calls[0]
+    model = models["ultron_s"]
+    fn = lambda x, v: model.extract(x, v)  # noqa: E731
+    dvecs, dq = (extract_vectors(fn, args[1], **{**kw, "print_freq": 0})
+                 for args, kw in ev_calls)
+    direct = rank_full(dq, dvecs, device="cuda")
+    err = max(float(np.abs(dvecs - vecs).max()),
+              float(np.abs(dq - qvecs).max()))
+    if err > 1e-6 or not np.array_equal(direct, ranks):
+        raise AssertionError(f"12.2 cli.evaluate --model ultron_s: "
+                             f"descriptors {err:.3e} from the direct "
+                             f"pipeline's, ranks equal "
+                             f"{np.array_equal(direct, ranks)}")
+    sizes = [im.shape[:2] for im in imgs[:4]]
+    sample = sorted({tuple(e) for e in ext.tolist()})[:6]
+    print(f"zoo 12.2 cli.evaluate --model ultron_s --multiscale on the "
+          f"fixture as a Revisited dataset ({len(imgs)} images, "
+          f"{len(q_idx)} queries) in {cli_s:.1f} s: extract_vectors given "
+          f"extent_multiple 32; image sizes {sizes} -> extents seen "
+          f"{sample} ... ({len(ext)} rows, all multiples of 32); "
+          f"descriptors == the direct pipeline's (max|err| {err:.3e}), "
+          f"ranks equal; launches {launches} [{smi}]")
+    out["12.2 cli.evaluate --model ultron_s"] = dict(launches=launches,
+                                                     cli_s=cli_s)
+
+    # -- cli.extract --model clip_r50 -------------------------------------
+    passes = [0]
+    real_fwd = ModifiedResNet.forward
+
+    def counted(self, *args, **kw):
+        passes[0] += 1
+        return real_fwd(self, *args, **kw)
+
+    ix_calls = []
+    real_ix = index_pkg.extract_vectors
+
+    def ix(fn, images, **kw):  # keeps the CLI's decoded thumbnails
+        images = list(images)
+        ix_calls.append((images, kw))
+        return real_ix(fn, images, **kw)
+
+    ModifiedResNet.forward, index_pkg.extract_vectors = counted, ix
+    npz = os.path.join(work, "clip_r50.npz")
+    _reset_launches(gh, rb)
+    t0 = time.perf_counter()
+    try:
+        cli_extract.main(["--model", "clip_r50", "--checkpoint",
+                          ckpts["clip_r50"], "--dataset", "roxford5k",
+                          "--data-root", root, "--multiscale", "--output",
+                          npz])
+    finally:
+        ModifiedResNet.forward, index_pkg.extract_vectors = real_fwd, real_ix
+    cli_s = time.perf_counter() - t0
+    launches = {"gem_head": gh.gem_whiten_l2.launches,
+                "bottleneck": rb.fused_bottleneck.launches}
+    if passes[0] == 0 or launches != {"gem_head": 0,
+                                      "bottleneck": 12 * passes[0]}:
+        raise AssertionError(f"12.2 cli.extract --model clip_r50: launches "
+                             f"{launches} over {passes[0]} tower passes")
+    with np.load(npz) as data:
+        got = data["vecs"]
+    model = models["clip_r50"]
+    (items, kw), = ix_calls
+    if kw.get("extent_multiple") != 1:
+        raise AssertionError(f"12.2 cli.extract --model clip_r50: extent "
+                             f"multiple {kw.get('extent_multiple')}, want 1")
+    want = extract_vectors(lambda x, v: model.extract(x, v), items,
+                           **{**kw, "print_freq": 0})
+    err = float(np.abs(got - want).max())
+    r_got = rank_full(got[q_idx], got, device="cuda")
+    r_want = rank_full(want[q_idx], want, device="cuda")
+    if err > 1e-6 or not np.array_equal(r_got, r_want):
+        raise AssertionError(f"12.2 cli.extract --model clip_r50: "
+                             f"descriptors {err:.3e} from the direct "
+                             f"pipeline's, ranks equal "
+                             f"{np.array_equal(r_got, r_want)}")
+    print(f"zoo 12.2 cli.extract --model clip_r50 --dataset roxford5k "
+          f"--multiscale in {cli_s:.1f} s: {got.shape} descriptors == the "
+          f"direct pipeline's (max|err| {err:.3e}), ranks equal; launches "
+          f"{launches} over {passes[0]} tower passes (12 bottleneck per "
+          f"pass) [{smi}]")
+    out["12.2 cli.extract --model clip_r50"] = dict(launches=launches,
+                                                    cli_s=cli_s)
+
+    # -- ImageExtractor with vit_b16 ------------------------------------------
+    svc = ImageExtractor("vit_b16", checkpoint=ckpts["vit_b16"], imsize=1024,
+                         device="cuda")
+    if svc._multiple != 16:
+        raise AssertionError(f"12.2 ImageExtractor(vit_b16): multiple "
+                             f"{svc._multiple}, want 16")
+    img = imgs[1]  # 70% of the width
+    seen = []
+    restore = _extents_seen(type(svc._model), seen)
+    _reset_launches(gh, rb)
+    t0 = time.perf_counter()
+    try:
+        got = svc([img])
+    finally:
+        restore()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = _no_launches(gh, rb, "12.2 ImageExtractor(vit_b16)")
+    model = models["vit_b16"]
+    want = extract_vectors(lambda x, v: model.extract(x, v),
+                           [imthumbnail(img, 1024)], scales=(1.0,),
+                           bucket=128, device_scales=True, input_norm=norm,
+                           extent_multiple=16, device="cuda")
+    err = float(np.abs(got - want).max())
+    seen = np.concatenate(seen)
+    if err > 1e-6 or (seen % 16).any():
+        raise AssertionError(f"12.2 ImageExtractor(vit_b16): {err:.3e} from "
+                             f"the direct extraction, extents {seen}")
+    print(f"zoo 12.2 ImageExtractor(vit_b16): one {img.shape[:2]} image "
+          f"query in {ms:.1f} ms (first call, host clock) through the "
+          f"service's multiple 16: extents {seen[:1].tolist()}, descriptor "
+          f"== the direct extraction (max|err| {err:.3e}); launches "
+          f"{launches} [{smi}]")
+    out["12.2 ImageExtractor(vit_b16)"] = dict(launches=launches, ms=ms)
+    del svc
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     # cuBLAS reads this when the process makes its first handle; 7.2's
     # deterministic_mode() needs it (utils/profiling.py)
@@ -2732,6 +3135,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"zoo phase 11: {time.perf_counter() - t0:.1f} s [{smi}]")
 
+    # -- 12: ULTRON, ViT, CLIP (both towers) and the grid multiple ---------
+    t0 = time.perf_counter()
+    transformers, keep = phase_transformers(torch, gh, rb, smi)
+    entry = phase_transformer_entry_points(torch, gh, rb, smi, keep)
+    del keep
+    torch.cuda.empty_cache()
+    print(f"zoo phase 12: {time.perf_counter() - t0:.1f} s [{smi}]")
+
     src = "research_image_retrieval_tpu_torch/csrc/"
     replaces = {
         "gem_head": "research_image_retrieval_tpu/ops/gem_pallas.py:84",
@@ -2759,7 +3170,10 @@ def main() -> int:
                         **{k: v["launches"][name]
                            for k, v in token_how.items()},
                         "11.2 cli.evaluate --cvnet-rerank (the rerank)":
-                            cvnet["launches"][name]})
+                            cvnet["launches"][name],
+                        **{k: v["launches"][name]
+                           for k, v in transformers.items()},
+                        **{k: v["launches"][name] for k, v in entry.items()}})
                for name in ("gem_head", "bottleneck")]
     # the bf16 forms: their main path is a bf16 model's (7.3-bf16), its
     # extraction counted as ``launches``, its validation beside it

@@ -88,7 +88,8 @@ def extract_index(model, images, names, *, imsize: int = 1024,
     from research_image_retrieval_tpu_torch.index import extract_vectors
     from research_image_retrieval_tpu_torch.ops import quantize_gallery_int8
 
-    extract, bucket = _make_extract_fn(model)
+    extract, bucket, multiple = _make_extract_fn(model)
+    host_scales = host_scales or bucket is None
     scales = (1.0, 2 ** -0.5, 0.5) if multiscale else (1.0,)
 
     def prepped():
@@ -101,7 +102,7 @@ def extract_index(model, images, names, *, imsize: int = 1024,
     vecs = extract_vectors(
         extract, prepped(), scales=scales, bucket=bucket,
         batch_size=batch_size, print_freq=print_freq,
-        device_scales=not host_scales,
+        extent_multiple=multiple, device_scales=not host_scales,
         input_norm=None if host_scales else (IMAGENET_MEAN, IMAGENET_STD),
         device=device)
     if quantize_int8:

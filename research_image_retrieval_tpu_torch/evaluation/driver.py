@@ -34,6 +34,7 @@ cannot be read without orbax.
 
 from __future__ import annotations
 
+import inspect
 import os
 import re
 
@@ -163,9 +164,20 @@ def _load_model(cfg: EvalConfig, device="cuda", num_classes: int = 81313):
 
 
 def _make_extract_fn(model, bucket: int = 128):
-    """(masked extract fn, bucket) for ``extract_vectors``: the port's
-    models all take per-image extents."""
-    return (lambda x, valid_hw=None: model.extract(x, valid_hw)), bucket
+    """``(fn, bucket, extent_multiple)`` for ``extract_vectors``.
+
+    A model whose ``extract`` takes ``valid_hw`` runs bucketed and masked
+    (every model of the port does); one that does not gets exact-shape
+    grouping (``bucket=None``), as the JAX driver falls back when its
+    abstract probe of the masked call fails.  Patch and window models
+    advertise the grid multiple their masked path needs
+    (``model.extent_multiple``: the patch size, or 32 for ULTRON), which
+    ``extract_vectors`` snaps image extents to."""
+    if "valid_hw" not in inspect.signature(model.extract).parameters:
+        return (lambda x: model.extract(x)), None, 1
+    multiple = int(getattr(model, "extent_multiple", 1))
+    return ((lambda x, valid_hw=None: model.extract(x, valid_hw)), bucket,
+            multiple)
 
 
 def _whiten(vecs, qvecs, cfg: EvalConfig, device):
@@ -397,7 +409,7 @@ def evaluate(cfg: EvalConfig, device="cuda") -> dict:
     returns ``{dataset: (E, M, H)}`` mAP in percent."""
     dev = resolve_device(device)
     model = _load_model(cfg, device=dev)
-    extract, bucket = _make_extract_fn(model, bucket=cfg.bucket)
+    extract, bucket, multiple = _make_extract_fn(model, bucket=cfg.bucket)
     results = {}
     with torch.no_grad():
         for dataset in cfg.datasets:
@@ -419,7 +431,8 @@ def evaluate(cfg: EvalConfig, device="cuda") -> dict:
                 ds.qim_fnames, imsize=cfg.imsize,
                 bbxs=[ds.query_bbx(i) for i in range(ds.nq)], raw_uint8=dsc))
             kw = dict(scales=cfg.multiscale, print_freq=100, bucket=bucket,
-                      device_scales=dsc, input_norm=norm, device=dev)
+                      device_scales=dsc, input_norm=norm,
+                      extent_multiple=multiple, device=dev)
             vecs = extract_vectors(extract, db_loader, **kw)
             qvecs = extract_vectors(extract, q_loader, **kw)
             if cfg.pca_whiten:
@@ -453,9 +466,10 @@ def evaluate_synthetic(model, cfg: EvalConfig = EvalConfig(),
     ds = SyntheticRetrievalDataset(num_classes=12, samples_per_class=8,
                                    image_size=min(cfg.imsize, 128), seed=7)
     imgs, labels = ds.as_arrays()
-    extract, bucket = _make_extract_fn(model, bucket=cfg.bucket)
+    extract, bucket, multiple = _make_extract_fn(model, bucket=cfg.bucket)
     vecs = extract_vectors(extract, list(imgs), scales=cfg.multiscale,
-                           bucket=bucket, device=dev)
+                           bucket=bucket, extent_multiple=multiple,
+                           device=dev)
     q_idx = np.arange(0, len(ds), 8)
     qvecs = vecs[q_idx]
     if cfg.pca_whiten:

@@ -11,7 +11,11 @@ Contract of the reference extractor (utils/helpfunc.py:18-48):
 
 Images are padded bottom/right into resolution buckets (H, W rounded up
 to a multiple of ``bucket``) and run batched with a [B, 2] valid-extent
-tensor; the masked model makes the padding invisible.  Descriptors
+tensor; the masked model makes the padding invisible.  Patch and window
+models (ViT, CLIP-ViT, ULTRON) advertise ``extent_multiple``: every
+task's extents are snapped to the nearest positive multiple of it (one
+resize from the original) before bucketing, so their token grids
+(``valid_hw // patch``) are exact.  Descriptors
 accumulate on the device with ``index_add_`` into a ``[block_cap + 1, D]``
 fp32 buffer whose last row is a trash row for padding rows and skipped
 scales; the host reads a block back once.  On CUDA each batch is
@@ -45,6 +49,12 @@ _UPSCALE_TARGET = 64
 _TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
                  np.dtype(np.uint8): torch.uint8,
                  np.dtype(np.int32): torch.int32}
+
+
+def _snap(v: int, multiple: int) -> int:
+    """Nearest positive multiple of ``multiple`` to ``v`` (Python's
+    ``round``: half to even), at least one multiple."""
+    return max(multiple, int(round(v / multiple)) * multiple)
 
 
 def _resize_taps(in_size: int, out_size: int, antialias: bool = True):
@@ -126,21 +136,29 @@ def multiscale_descriptor(extract_fn: Callable[[torch.Tensor], torch.Tensor],
 
 
 def _scale_tasks(idx: int, img: np.ndarray, scales: Sequence[float],
+                 multiple: int = 1,
                  antialias: bool = True) -> list[tuple[int, np.ndarray]]:
     """One image -> (owner index, host-resized image) tasks, with the
-    reference's <36 px guards."""
+    reference's <36 px guards; ``multiple`` > 1 snaps every task's
+    extents to it (``_snap``), resizing once from the original."""
     H, W = img.shape[:2]
     if len(scales) == 1 and scales[0] == 1.0:
+        nh, nw = H, W
         if H < _MIN_SIDE or W < _MIN_SIDE:
             s = max(_UPSCALE_TARGET / H, _UPSCALE_TARGET / W)
-            img = resize_bilinear_np(img, int(round(H * s)),
-                                     int(round(W * s)), antialias=antialias)
+            nh, nw = int(round(H * s)), int(round(W * s))
+        if multiple > 1:
+            nh, nw = _snap(nh, multiple), _snap(nw, multiple)
+        if (nh, nw) != (H, W):
+            img = resize_bilinear_np(img, nh, nw, antialias=antialias)
         return [(idx, img)]
     tasks = []
     for s in scales:
         nh, nw = int(math.floor(H * s)), int(math.floor(W * s))
         if nh < _MIN_SIDE or nw < _MIN_SIDE:
             continue
+        if multiple > 1:
+            nh, nw = _snap(nh, multiple), _snap(nw, multiple)
         scaled = (img if (nh, nw) == (H, W)
                   else resize_bilinear_np(img, nh, nw, antialias=antialias))
         tasks.append((idx, scaled))
@@ -336,14 +354,18 @@ class _DeviceScaleAccumStream(_AccumStream):
     h, w, owner, then per scale out h, out w, ok); skipped rows go to the
     trash row.  ``input_norm=(mean, std)`` ships raw uint8 and normalizes
     on the device before the resize.  Single-scale ``(1.0,)`` is
-    supported: rows that need the <36 px upscale use a resize variant
-    whose bucket is keyed by the upscaled shape.
+    supported: rows that need the <36 px upscale (or a snap to
+    ``extent_multiple``) use a resize variant whose bucket is keyed by
+    the resized shape.  With ``extent_multiple`` > 1 every scale, 1.0
+    included, goes through the resize (the identity resize is exact) to
+    its snapped extents, and each downscaled pad leaves half a multiple
+    of margin for a snap that rounds up.
     """
 
     def __init__(self, extract_fn, bucket: int, batch_size: int, scales,
                  device: torch.device, block_cap: int = 8192,
                  pipeline_depth: int = 4, input_norm=None,
-                 antialias: bool = True):
+                 antialias: bool = True, extent_multiple: int = 1):
         super().__init__(extract_fn, bucket, batch_size, device,
                          block_cap=block_cap, pipeline_depth=pipeline_depth)
         self.antialias = antialias
@@ -353,6 +375,7 @@ class _DeviceScaleAccumStream(_AccumStream):
         self.scales = tuple(scales)
         self.single = self.scales == (1.0,)
         self.multi = not self.single
+        self.multiple = max(1, int(extent_multiple))
 
     def _key_and_task(self, owner: int, img: np.ndarray):
         vh, vw = img.shape[:2]
@@ -364,6 +387,8 @@ class _DeviceScaleAccumStream(_AccumStream):
         if vh < _MIN_SIDE or vw < _MIN_SIDE:
             f = max(_UPSCALE_TARGET / vh, _UPSCALE_TARGET / vw)
             nh, nw = int(round(vh * f)), int(round(vw * f))
+        if self.multiple > 1:
+            nh, nw = _snap(nh, self.multiple), _snap(nw, self.multiple)
         if (nh, nw) == (vh, vw):
             return (self._q(vh), self._q(vw), "direct"), (owner, img, None)
         return ((self._q(max(vh, nh)), self._q(max(vw, nw)), "resize"),
@@ -384,6 +409,9 @@ class _DeviceScaleAccumStream(_AccumStream):
             else:
                 nh, nw = int(math.floor(vh * s)), int(math.floor(vw * s))
                 ok = int(nh >= _MIN_SIDE and nw >= _MIN_SIDE)
+                if ok and self.multiple > 1:
+                    nh, nw = (_snap(nh, self.multiple),
+                              _snap(nw, self.multiple))
             meta[r, 3 + 3 * si: 5 + 3 * si] = (nh, nw) if ok else (vh, vw)
             meta[r, 5 + 3 * si] = ok
 
@@ -401,11 +429,13 @@ class _DeviceScaleAccumStream(_AccumStream):
         bh, bw, variant = key
         if variant in ("direct", "resize"):
             return [(bh, bw)], [variant == "direct"]
+        mult = self.multiple
+        margin = mult // 2 if mult > 1 else 0
         pads = [(bh, bw) if s >= 1.0 else
-                (self._q(int(math.floor(bh * s))),
-                 self._q(int(math.floor(bw * s))))
+                (self._q(int(math.floor(bh * s)) + margin),
+                 self._q(int(math.floor(bw * s)) + margin))
                 for s in self.scales]
-        return pads, [s == 1.0 for s in self.scales]
+        return pads, [s == 1.0 and mult == 1 for s in self.scales]
 
     def _run(self, key: tuple, batch: torch.Tensor, meta: torch.Tensor):
         x0 = self.prep(batch)
@@ -440,6 +470,7 @@ def extract_vectors(
     block_cap: int = 8192,
     antialias: bool = True,
     pipeline_depth: int = 4,
+    extent_multiple: int = 1,
     device="cuda",
 ) -> np.ndarray:
     """Descriptors of a sequence of variable-resolution images.
@@ -467,6 +498,11 @@ def extract_vectors(
         is the reference's plain 2-tap bilinear (F.interpolate).
       pipeline_depth: pinned staging slots (batches the host may run
         ahead of the device).
+      extent_multiple: grid alignment of the model's masked path (the
+        patch size of ViT / CLIP-ViT, 32 for ULTRON; models advertise it
+        as ``model.extent_multiple``): every task's extents snap to the
+        nearest multiple before bucketing, and the bucket quantum rounds
+        up to a multiple.  Bucketed mode only.
       device: "cuda" (default) or "cpu".
 
     Returns:
@@ -485,12 +521,15 @@ def extract_vectors(
             return _extract_exact_shapes(extract_fn, imgs, scales, dev,
                                          print_freq=print_freq,
                                          antialias=antialias)
+        if extent_multiple > 1:
+            bucket = -(-bucket // extent_multiple) * extent_multiple
         multi = not (len(scales) == 1 and scales[0] == 1.0)
         if device_scales and (multi or input_norm is not None):
             stream = _DeviceScaleAccumStream(
                 extract_fn, bucket, batch_size, scales, dev,
                 block_cap=block_cap, pipeline_depth=pipeline_depth,
-                input_norm=input_norm, antialias=antialias)
+                input_norm=input_norm, antialias=antialias,
+                extent_multiple=extent_multiple)
 
             def expand(i, img):  # scales resolve on the device; fail fast
                 H, W = img.shape[:2]
@@ -505,8 +544,8 @@ def extract_vectors(
                                   block_cap=block_cap,
                                   pipeline_depth=pipeline_depth)
             stream.multi = multi
-            expand = lambda i, img: _scale_tasks(i, img, scales,
-                                                 antialias=antialias)
+            expand = lambda i, img: _scale_tasks(
+                i, img, scales, multiple=extent_multiple, antialias=antialias)
         in_dtype = stream.in_dtype
         n = 0
         for i, img in enumerate(images):

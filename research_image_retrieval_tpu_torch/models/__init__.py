@@ -13,6 +13,23 @@ from research_image_retrieval_tpu_torch.models.backbone import (
     ResNet,
     stage_extents,
 )
+from research_image_retrieval_tpu_torch.models.clip import (
+    CLIP,
+    CLIPGlobalModel,
+    CLIPTextEncoder,
+    clip_contrastive_loss,
+)
+from research_image_retrieval_tpu_torch.models.clip_convert import (
+    build_clip_from_torch,
+    convert_clip_visual_vit,
+    convert_torch_clip,
+    load_clip_visual_into,
+)
+from research_image_retrieval_tpu_torch.models.clip_resnet import (
+    AttentionPool2d,
+    CLIPBottleneck,
+    ModifiedResNet,
+)
 from research_image_retrieval_tpu_torch.models.convert import (
     from_jax_variables,
     load_features_resnet,
@@ -57,13 +74,26 @@ from research_image_retrieval_tpu_torch.models.token import (
     TokenModel,
     TokenRefine,
 )
+from research_image_retrieval_tpu_torch.models.ultron import (
+    ULTRON,
+    ULTRONRetrievalModel,
+)
+from research_image_retrieval_tpu_torch.models.vit import (
+    ViTGlobalModel,
+    VisionTransformer,
+)
 
 __all__ = [
     "AdaptiveHybridModel",
     "Attention",
+    "AttentionPool2d",
     "BasicBlock",
     "BatchNorm",
     "BottleneckBlock",
+    "CLIP",
+    "CLIPBottleneck",
+    "CLIPGlobalModel",
+    "CLIPTextEncoder",
     "CVLearner",
     "CVNetRerank",
     "CenterPivotConv4d",
@@ -77,6 +107,7 @@ __all__ = [
     "LayerNorm",
     "MODEL_REGISTRY",
     "Mlp",
+    "ModifiedResNet",
     "QAFF",
     "RESNET_STAGE_DEPTHS",
     "ResNet",
@@ -89,11 +120,20 @@ __all__ = [
     "TokenBatchNorm",
     "TokenModel",
     "TokenRefine",
+    "ULTRON",
+    "ULTRONRetrievalModel",
+    "ViTGlobalModel",
+    "VisionTransformer",
+    "build_clip_from_torch",
+    "clip_contrastive_loss",
     "contrastive_loss",
+    "convert_clip_visual_vit",
+    "convert_torch_clip",
     "from_jax_variables",
     "get_model",
     "get_model_info",
     "list_available_models",
+    "load_clip_visual_into",
     "load_features_resnet",
     "load_pycls_resnet",
     "load_torchvision_resnet",

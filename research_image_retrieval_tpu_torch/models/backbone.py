@@ -56,7 +56,7 @@ from research_image_retrieval_tpu_torch.utils.device import fp32_precision
 
 __all__ = ["BasicBlock", "BatchNorm", "BottleneckBlock", "Conv2d",
            "RESNET_STAGE_DEPTHS", "ResNet", "compute_dtype", "nchw_conv",
-           "stage_extents", "train_mode"]
+           "same_conv", "same_pads", "stage_extents", "train_mode"]
 
 RESNET_STAGE_DEPTHS = {
     "resnet18": (2, 2, 2, 2),
@@ -106,13 +106,30 @@ def nchw_conv(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
     return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
+def same_pads(n: int, k: int, s: int) -> tuple[int, int]:
+    """flax ``SAME``: ceil(n / s) outputs, the total pad split low-first
+    (``total // 2`` before)."""
+    total = max((-(-n // s) - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def same_conv(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``conv`` (no padding of its own) with flax's ``SAME`` padding on an
+    NHWC batch; NHWC out."""
+    k, s = conv.kernel_size[0], conv.stride[0]
+    ph, pw = same_pads(x.shape[1], k, s), same_pads(x.shape[2], k, s)
+    x = F.pad(x, (0, 0, *pw, *ph))
+    return nchw_conv(conv, x)
+
+
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` (no bias) computing in its input's dtype: the fp32
-    weight is cast to it, as flax's ``nn.Conv(dtype=...)`` casts its
-    kernel; the gradient reaches the fp32 weight through the cast."""
+    """``nn.Conv2d`` computing in its input's dtype: the fp32 weight (and
+    bias, if any) is cast to it, as flax's ``nn.Conv(dtype=...)`` casts
+    its kernel; the gradient reaches the fp32 weight through the cast."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(x, self.weight.to(x.dtype), None)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
 def _apply_mask(y: torch.Tensor, extents: torch.Tensor | None) -> torch.Tensor:

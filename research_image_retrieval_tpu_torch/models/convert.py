@@ -3,16 +3,21 @@
 * ``from_jax_variables``: flax ``{"params", "batch_stats"}`` of the JAX
   ``ResNet``, of a model over one (``params["backbone"]``: the GeM,
   DOLG, SOLAR, DELG, SpCa, SoSNet, SpoC, AdaptiveHybrid, Token and HOW
-  models; ``params["encoder"]``: ``CVNetRerank``) or of
-  ``SENetG2Model`` (no backbone subtree; its own ``conv1``, ``bn1`` and
-  ``layer{i}_{j}`` at the top level); numpy arrays -> the port's state
-  dict.  The inverse of the JAX ``convert_torch_resnet`` for the
+  models; ``params["encoder"]``: ``CVNetRerank``; ``params["visual"]``:
+  CLIP's ModifiedResNet, with its three stem convolutions and its
+  ``attnpool``), of ``SENetG2Model`` (no backbone subtree; its own
+  ``conv1``, ``bn1`` and ``layer{i}_{j}`` at the top level) or of a
+  transformer model (ViT, CLIP's ViT and text towers, ULTRON: their
+  flax names throughout); numpy arrays -> the port's state dict.  The inverse of the JAX ``convert_torch_resnet`` for the
   backbone (conv kernels HWIO -> OIHW, BN ``scale/bias/mean/var`` ->
   ``weight/bias/running_mean/running_var``, ``layer{i}_{j}`` ->
   ``layer{i}.{j}``); the rest keeps its flax names, recursively: Dense
-  kernels ``[C, D]`` -> Linear ``weight [D, C]``, convolutions as
-  above, LayerNorm ``scale`` -> ``weight``, bare parameters
-  (``classifier_w``, ``gem_p``, ``clusters``, ...) as they are.  The
+  kernels ``[C, D]`` -> Linear ``weight [D, C]`` (attention's
+  ``DenseGeneral`` kernels ``[D, h, hd]`` and ``out`` ``[h, hd, D]``
+  flattened to the same, their ``[h, hd]`` biases kept), convolutions as above, LayerNorm ``scale`` ->
+  ``weight``, ``Embed`` ``embedding`` -> ``weight``, bare parameters
+  (``classifier_w``, ``gem_p``, ``clusters``, ``pos_embed``, ...) as
+  they are.  The
   scopes that flax gives modules made inside ``nn.compact_name_scope``
   methods (SpoC's ``_context`` / ``_features``, AdaptiveHybrid's
   ``descriptors``) are flattened into the model, where the port keeps
@@ -68,8 +73,10 @@ def _resnet_from_flax(params: dict, stats: dict, prefix: str) -> dict:
         sd[f"{prefix}{dst}.running_mean"] = _t(s["mean"])
         sd[f"{prefix}{dst}.running_var"] = _t(s["var"])
 
-    conv("conv1", params["conv1"])
-    bn("bn1", params["bn1"], stats["bn1"])
+    for k in (1, 2, 3):  # CLIP's ModifiedResNet has a three-conv stem
+        if f"conv{k}" in params:
+            conv(f"conv{k}", params[f"conv{k}"])
+            bn(f"bn{k}", params[f"bn{k}"], stats[f"bn{k}"])
     for key in params:
         if not key.startswith("layer"):
             continue
@@ -87,20 +94,29 @@ def _resnet_from_flax(params: dict, stats: dict, prefix: str) -> dict:
 
 def _heads_from_flax(params: dict, stats: dict, prefix: str, sd: dict):
     """A model's non-backbone flax modules under their flax names: Dense
-    and Conv (``kernel`` [+ ``bias``]), BatchNorm (``scale``/``bias`` +
-    the stats) and LayerNorm (``scale``/``bias``, no stats), submodules
-    recursively, and bare arrays (``classifier_w``, ``gem_p``) as they
-    are."""
+    and Conv (``kernel`` [+ ``bias``]; attention's ``DenseGeneral``
+    kernels flattened over their head axes), BatchNorm (``scale``/``bias``
+    + the stats), LayerNorm (``scale``/``bias``, no stats) and Embed
+    (``embedding``), submodules recursively, and bare arrays
+    (``classifier_w``, ``gem_p``) as they are."""
     for name, p in params.items():
         key = prefix + name
         if not isinstance(p, dict):
             sd[key] = _t(p)
         elif "kernel" in p:
             k = np.asarray(p["kernel"])
-            sd[f"{key}.weight"] = _t(np.transpose(k, (3, 2, 0, 1))
-                                     if k.ndim == 4 else k.T)
+            if k.ndim == 4:
+                w = np.transpose(k, (3, 2, 0, 1))
+            elif k.ndim == 3:  # DenseGeneral: [D, h, hd] or out [h, hd, D]
+                w = (k.reshape(-1, k.shape[-1]) if name == "out"
+                     else k.reshape(k.shape[0], -1)).T
+            else:
+                w = k.T
+            sd[f"{key}.weight"] = _t(w)
             if "bias" in p:
                 sd[f"{key}.bias"] = _t(p["bias"])
+        elif "embedding" in p:
+            sd[f"{key}.weight"] = _t(p["embedding"])
         elif "scale" in p:
             sd[f"{key}.weight"] = _t(p["scale"])
             sd[f"{key}.bias"] = _t(p["bias"])
@@ -122,24 +138,42 @@ def _flatten_name_scopes(tree: dict) -> dict:
     return out
 
 
+def _is_resnet(tree) -> bool:
+    """Whether a flax subtree is a ResNet trunk (CLIP's with its
+    ``attnpool``)."""
+    return isinstance(tree, dict) and "layer1_0" in tree and all(
+        re.fullmatch(r"conv\d|bn\d|layer\d+_\d+|attnpool", k) for k in tree)
+
+
 def from_jax_variables(variables: dict) -> dict:
     """Port state dict from flax variables of ``ResNet``, of a model
-    whose backbone is one (``params["backbone"]``, or CVNet's
-    ``params["encoder"]``) or of a model with its own layers at the top
-    level (``SENetG2Model``).  The ``model_state`` collection
-    (RetrievalNet's ``arcface_t``) becomes buffers of the same names."""
+    whose backbone is one (``params["backbone"]``, CVNet's
+    ``params["encoder"]`` or CLIP's ModifiedResNet ``params["visual"]``),
+    of a model with its own layers at the top level (``SENetG2Model``)
+    or of a transformer model (every name its flax name).  The
+    ``model_state`` collection (RetrievalNet's ``arcface_t``) becomes
+    buffers of the same names."""
     params = _flatten_name_scopes(variables["params"])
     stats = _flatten_name_scopes(variables.get("batch_stats", {}))
     sd = {k: _t(v) for k, v in variables.get("model_state", {}).items()}
-    trunk = next((k for k in ("backbone", "encoder") if k in params), None)
+    trunk = next((k for k in ("backbone", "encoder", "visual")
+                  if _is_resnet(params.get(k))), None)
     if trunk is None:
-        if all(re.fullmatch(r"conv1|bn1|layer\d+_\d+", k) for k in params):
-            return _resnet_from_flax(params, stats, "")  # a bare ResNet
+        if _is_resnet(params):  # a bare ResNet or ModifiedResNet
+            return _trunk_from_flax(params, stats, "")
         _heads_from_flax(params, stats, "", sd)
         return sd
-    sd.update(_resnet_from_flax(params[trunk], stats[trunk], f"{trunk}."))
+    sd.update(_trunk_from_flax(params[trunk], stats[trunk], f"{trunk}."))
     _heads_from_flax({k: v for k, v in params.items() if k != trunk},
                      stats, "", sd)
+    return sd
+
+
+def _trunk_from_flax(params: dict, stats: dict, prefix: str) -> dict:
+    """A ResNet trunk, and the ``attnpool`` of CLIP's ModifiedResNet."""
+    sd = _resnet_from_flax(params, stats, prefix)
+    if "attnpool" in params:
+        _heads_from_flax({"attnpool": params["attnpool"]}, {}, prefix, sd)
     return sd
 
 
@@ -215,18 +249,20 @@ def load_features_resnet(state_dict: dict) -> dict:
 def seeded_init(module: nn.Module, seed: int) -> None:
     """Fill every parameter and buffer from ``torch.Generator(seed)`` in
     sorted state-dict order: conv/linear weights N(0, 1/fan_in), BN
-    weight 1 + 0.1 N, BN bias and running mean 0.1 N, running var
-    |N| + 0.5, other vectors 0.1 N.  Parameters a log or a square root
+    weight 1 + 0.1 N, biases (attention's ``[heads, head_dim]`` too) and
+    BN running mean 0.1 N, running var |N| + 0.5, other vectors 0.1 N.  Parameters a log or a square root
     reads (SpCa's ``pi`` and ``cov``) get |N| + 0.5, G2+'s ``g2_alpha``
-    and ASMK's cluster ``weights`` 1 + 0.1 N; a learnable GeM ``gem_p``
-    and RetrievalNet's EMA state ``arcface_t`` keep their values."""
+    and ASMK's cluster ``weights`` 1 + 0.1 N; a learnable GeM ``gem_p``,
+    ULTRON's pooling exponent ``gamma``, CLIP's ``logit_scale`` and
+    RetrievalNet's EMA state ``arcface_t`` keep their values."""
     gen = torch.Generator().manual_seed(seed)
     sd = module.state_dict()
     with torch.no_grad():
         for k in sorted(sd):
             t = sd[k]
-            if k.endswith("num_batches_tracked") or k in ("gem_p",
-                                                          "arcface_t"):
+            if (k.endswith("num_batches_tracked")
+                    or k in ("gem_p", "arcface_t")
+                    or k.rsplit(".", 1)[-1] in ("gamma", "logit_scale")):
                 continue
             v = torch.randn(tuple(t.shape), generator=gen, dtype=torch.float32)
             leaf = k.rsplit(".", 1)[-1]
@@ -234,7 +270,7 @@ def seeded_init(module: nn.Module, seed: int) -> None:
                 v = v.abs() + 0.5
             elif leaf in ("g2_alpha", "weights"):
                 v = 1.0 + 0.1 * v
-            elif t.dim() > 1:
+            elif t.dim() > 1 and leaf != "bias":
                 v = v / math.sqrt(max(int(np.prod(t.shape[1:])), 1))
             elif k.endswith("weight"):
                 v = 1.0 + 0.1 * v
@@ -252,8 +288,11 @@ def training_init(module: nn.Module, generator: torch.Generator) -> None:
     LayerNorm scale 1, bias 0, BN running mean 0, running variance 1; a
     ``classifier_w`` xavier-uniform; a module's own parameters by its
     ``reset_flax(generator)`` (SpCa's codebook, G2+'s affine, Token's
-    queries, HOW's centroids and ASMK weights, CVNet's GroupNorms).  A
-    learnable GeM ``gem_p`` keeps its value.  torch's default conv init
+    queries, HOW's centroids and ASMK weights, CVNet's GroupNorms, the
+    transformers' position embeddings and tokens, ULTRON's channel
+    attention weights and bias tables, CLIP's text embeddings).  A
+    learnable GeM ``gem_p``, ULTRON's ``gamma`` (2.0) and CLIP's
+    ``logit_scale`` keep their values.  torch's default conv init
     (kaiming-uniform, a = sqrt(5)) has a third of this variance and is
     not used.
     """

@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from research_image_retrieval_tpu_torch.models.backbone import (
     ResNet,
     nchw_conv,
+    same_conv,
     stage_extents,
     train_mode,
 )
@@ -48,22 +49,6 @@ from research_image_retrieval_tpu_torch.ops.resize import dense_resize_weights
 from research_image_retrieval_tpu_torch.utils.device import fp32_precision
 
 __all__ = ["CVLearner", "CVNetRerank", "CenterPivotConv4d", "GroupNorm"]
-
-
-def _same_pads(n: int, k: int, s: int) -> tuple[int, int]:
-    """flax ``SAME``: ceil(n / s) outputs, the total pad split low-first
-    (``total // 2`` before)."""
-    total = max((-(-n // s) - 1) * s + k - n, 0)
-    return total // 2, total - total // 2
-
-
-def _same_conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """``conv`` (no padding of its own) with flax's ``SAME`` padding on an
-    NHWC batch; NHWC out."""
-    k, s = conv.kernel_size[0], conv.stride[0]
-    ph, pw = _same_pads(x.shape[1], k, s), _same_pads(x.shape[2], k, s)
-    x = F.pad(x, (0, 0, *pw, *ph))
-    return nchw_conv(conv, x)
 
 
 class CenterPivotConv4d(nn.Module):
@@ -85,12 +70,12 @@ class CenterPivotConv4d(nn.Module):
         x1 = x[:, :, :, ::ks, ::ks]
         hb2, wb2 = x1.shape[3], x1.shape[4]
         x1 = x1.permute(0, 3, 4, 1, 2, 5).reshape(B * hb2 * wb2, ha, wa, C)
-        o1 = _same_conv(self.conv_query, x1)
+        o1 = same_conv(self.conv_query, x1)
         ha2, wa2 = o1.shape[1], o1.shape[2]
         o1 = o1.reshape(B, hb2, wb2, ha2, wa2, f).permute(0, 3, 4, 1, 2, 5)
         # branch 2: each kept query position's key plane convolved
         x2 = x[:, ::qs, ::qs].reshape(B * ha2 * wa2, hb, wb, C)
-        o2 = _same_conv(self.conv_key, x2)
+        o2 = same_conv(self.conv_key, x2)
         o2 = o2.reshape(B, ha2, wa2, o2.shape[1], o2.shape[2], f)
         return o1 + o2
 

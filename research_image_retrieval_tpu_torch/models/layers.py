@@ -13,7 +13,14 @@ flax-semantics normalizations and the dropout the zoo's heads use.
 * ``Mlp`` (exact GELU) and ``DropPath`` (stochastic depth).
 * ``LayerNorm`` — flax's: ``var = max(E[x^2] - E[x]^2, 0)`` (its
   ``use_fast_variance`` default), ``y = (x - mean) * (rsqrt(var + eps) *
-  scale) + bias``.
+  scale) + bias``; a bf16 input is normalized in fp32 and rounded back.
+* ``Dense`` — flax ``nn.Dense(dtype=...)``: a Linear computing in its
+  input's dtype (fp32 parameters cast to it).
+* ``MultiHeadAttention`` — flax ``nn.MultiHeadDotProductAttention``
+  (self-attention, ``query`` / ``key`` / ``value`` / ``out`` with biases,
+  the first three ``[heads, head_dim]`` as flax keeps them,
+  the query divided by ``sqrt(head_dim)``, padded keys at the dtype's
+  lowest value, the softmax in fp32) of the transformer towers.
 * ``TokenBatchNorm`` — flax ``nn.BatchNorm`` of a ``[B, N, D]`` tensor
   over (B, N): the backbone's ``BatchNorm`` on a ``[B, D, N, 1]`` view,
   so the biased running variance and ``E[x^2] - E[x]^2`` carry over.
@@ -21,7 +28,8 @@ flax-semantics normalizations and the dropout the zoo's heads use.
   step's, drawn once per step from the train state's stream), so a
   seeded or resumed run repeats; its bits are not flax's.
 
-All ops are batch-first ``[B, N, D]`` and run in fp32 with TF32 off.
+All ops are batch-first ``[B, N, D]`` and run in fp32 with TF32 off
+(the towers' blocks in their model's compute dtype).
 """
 
 from __future__ import annotations
@@ -32,10 +40,11 @@ import torch.nn.functional as F
 
 from research_image_retrieval_tpu_torch.models.backbone import BatchNorm
 from research_image_retrieval_tpu_torch.ops.masking import mask_attn_logits
+from research_image_retrieval_tpu_torch.ops.norm import at_least_fp32
 from research_image_retrieval_tpu_torch.utils.device import fp32_precision
 
-__all__ = ["Attention", "Decoder", "DropPath", "Encoder", "LayerNorm", "Mlp",
-           "TokenBatchNorm", "dropout"]
+__all__ = ["Attention", "Decoder", "Dense", "DropPath", "Encoder", "LayerNorm",
+           "Mlp", "MultiHeadAttention", "TokenBatchNorm", "dropout"]
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
@@ -69,11 +78,71 @@ class LayerNorm(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mean = x.mean(-1, keepdim=True)
-        var = torch.clamp((x * x).mean(-1, keepdim=True) - mean * mean,
+        xf = at_least_fp32(x)
+        mean = xf.mean(-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean,
                           min=0.0)
-        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
             + self.bias
+        return y.to(x.dtype)
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` computing in its input's dtype (flax ``nn.Dense(
+    dtype=...)``: a bf16 input multiplies the bf16-cast weight with fp32
+    accumulation and gives bf16).  A bias may keep a ``DenseGeneral``'s
+    ``[heads, head_dim]`` shape."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else \
+            self.bias.reshape(-1).to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+class MultiHeadAttention(nn.Module):
+    """flax ``MultiHeadDotProductAttention`` as self-attention over
+    ``[B, N, dim]`` (``qkv_features = out_features = dim``).  The
+    projections run in the input's dtype; the logits are taken to fp32
+    for the mask and the softmax (flax's ``force_fp32_for_softmax``), and
+    the probabilities return to the input's dtype for the values."""
+
+    def __init__(self, dim: int, num_heads: int):
+        super().__init__()
+        self.dim, self.num_heads = dim, num_heads
+        self.query = Dense(dim, dim)
+        self.key = Dense(dim, dim)
+        self.value = Dense(dim, dim)
+        self.out = Dense(dim, dim)
+        for proj in (self.query, self.key, self.value):
+            # flax's shape, so the rank > 1 decay mask takes them as JAX's
+            proj.bias = nn.Parameter(torch.zeros(num_heads, dim // num_heads))
+
+    @fp32_precision()
+    def forward(self, x: torch.Tensor, key_mask: torch.Tensor | None = None,
+                causal: bool = False) -> torch.Tensor:
+        """``key_mask`` [B, N] (1 = real token) removes padded keys from
+        every query's softmax; ``causal`` lets token i see keys <= i."""
+        B, N, _ = x.shape
+        h = self.num_heads
+        hd = self.dim // h
+
+        def heads(t):
+            return t.reshape(B, N, h, hd).transpose(1, 2)
+
+        q = heads(self.query(x)) / torch.sqrt(
+            torch.tensor(float(hd), dtype=x.dtype, device=x.device))
+        logits = torch.matmul(q, heads(self.key(x)).transpose(-1, -2))
+        logits = at_least_fp32(logits)
+        low = torch.finfo(logits.dtype).min
+        if key_mask is not None:
+            logits = torch.where(key_mask.bool()[:, None, None, :], logits,
+                                 low)
+        if causal:
+            tri = torch.ones(N, N, dtype=torch.bool, device=x.device).tril()
+            logits = torch.where(tri, logits, low)
+        attn = torch.softmax(logits, dim=-1).to(x.dtype)
+        out = torch.matmul(attn, heads(self.value(x)))
+        return self.out(out.transpose(1, 2).reshape(B, N, self.dim))
 
 
 class TokenBatchNorm(BatchNorm):

@@ -8,11 +8,14 @@ from research_image_retrieval_tpu_torch.ops.losses import (
     arcface_delg_logits,
     arcface_logits,
     cross_entropy,
+    madacos_loss,
     topk_errors,
 )
 from research_image_retrieval_tpu_torch.ops.masking import (
     ceil_half,
     downsample_extents,
+    dynamic_resize_weights,
+    floor_half,
     hw_mask,
     mask_attn_logits,
     token_mask,
@@ -57,6 +60,8 @@ __all__ = [
     "cross_entropy",
     "dense_resize_weights",
     "downsample_extents",
+    "dynamic_resize_weights",
+    "floor_half",
     "fold_bn",
     "fused_bottleneck",
     "fused_bottleneck_reference",
@@ -67,6 +72,7 @@ __all__ = [
     "hw_mask",
     "int8_streaming_topk",
     "l2_normalize",
+    "madacos_loss",
     "mask_attn_logits",
     "max_pool_all",
     "pca_whiten_learn",

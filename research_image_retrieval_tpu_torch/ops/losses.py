@@ -1,11 +1,10 @@
 """Margin classification loss of the flagship and its metrics
-(port of ``cross_entropy``, ``arcface_logits``, ``arcface_delg_logits``
-and ``topk_errors`` of
+(port of ``cross_entropy``, ``arcface_logits``, ``arcface_delg_logits``,
+``madacos_loss`` and ``topk_errors`` of
 ``research_image_retrieval_tpu/ops/losses.py``).
 
 The classifier weight is an explicit argument, as in the JAX functions;
 ``arcface_delg_logits`` returns its EMA state instead of mutating it.
-``madacos_loss`` belongs to ULTRON and is not ported yet.
 """
 
 from __future__ import annotations
@@ -21,7 +20,7 @@ from research_image_retrieval_tpu_torch.ops.norm import (
 )
 
 __all__ = ["arcface_delg_logits", "arcface_logits", "cross_entropy",
-           "topk_errors"]
+           "madacos_loss", "topk_errors"]
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -75,6 +74,50 @@ def arcface_delg_logits(features: torch.Tensor, weight: torch.Tensor,
     final_target = torch.where(target > threshold, cos_theta_m, target - mm)
     one_hot = F.one_hot(labels.long(), weight.shape[0]).bool()
     return torch.where(one_hot, final_target, out) * s, new_t
+
+
+def madacos_loss(features: torch.Tensor, weight: torch.Tensor,
+                 labels: torch.Tensor, rho: float = 0.04, t: float = 0.1,
+                 sigma: float = 0.1, fixed_scale: float | None = None,
+                 fixed_margin: float | None = None):
+    """Margin-adaptive cosine loss (MadaCos, ULTRON eqs 13-15).
+
+    scale ``s = log((1-t)(1-rho)/sigma) / (1 - median(target_cos))`` with
+    the LOWER median (``sort[(n-1)//2]``, torch.median's rule);
+    margin ``m = mean(target_cos) - 0.5 log(rho E[sum_j exp(s cos_j)] /
+    (1-rho))`` clamped to [0, 1], the target column zeroed BEFORE the exp
+    (it adds exp(0) = 1 to each row); logits ``s (cos_t - m)`` at the
+    target and ``s cos`` elsewhere; cross entropy over them.  Scale and
+    margin carry no gradient.  Returns ``(loss, {"scale", "margin",
+    "logits"})``."""
+    feats = l2_normalize(at_least_fp32(features))
+    w = l2_normalize(at_least_fp32(weight))
+    cos = torch.matmul(feats, w.t())
+    lab = labels.long()
+    target_cos = torch.gather(cos, 1, lab[:, None])[:, 0]
+    if fixed_scale is not None:
+        scale = torch.tensor(fixed_scale, dtype=cos.dtype, device=cos.device)
+    else:
+        n = target_cos.shape[0]
+        median = torch.sort(target_cos.detach()).values[(n - 1) // 2]
+        scale = math.log((1.0 - t) * (1.0 - rho) / sigma) \
+            / (1.0 - median + 1e-8)
+    if fixed_margin is not None:
+        margin = torch.tensor(fixed_margin, dtype=cos.dtype,
+                              device=cos.device)
+    else:
+        one_hot = F.one_hot(lab, weight.shape[0]).to(cos.dtype)
+        mean_cos = target_cos.detach().mean()
+        neg_cos = cos.detach() * (1.0 - one_hot)
+        exp_sum = torch.exp(scale * neg_cos).sum(dim=1).mean()
+        margin = torch.clamp(
+            mean_cos - 0.5 * torch.log(rho * exp_sum / (1.0 - rho) + 1e-8),
+            0.0, 1.0)
+    target_entry = scale * (target_cos - margin)
+    hot = F.one_hot(lab, weight.shape[0]).bool()
+    logits = torch.where(hot, target_entry[:, None], scale * cos)
+    return cross_entropy(logits, labels), {"scale": scale, "margin": margin,
+                                           "logits": logits}
 
 
 def topk_errors(logits: torch.Tensor, labels: torch.Tensor, ks=(1, 5)):

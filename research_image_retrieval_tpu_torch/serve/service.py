@@ -34,6 +34,7 @@ from research_image_retrieval_tpu_torch.data.transforms import (
     IMAGENET_MEAN,
     IMAGENET_STD,
     imthumbnail,
+    normalize,
 )
 from research_image_retrieval_tpu_torch.evaluation.driver import (
     _load_model,
@@ -383,7 +384,8 @@ class ImageExtractor:
         self.device = resolve_device(device)
         cfg = EvalConfig(model=model, checkpoint=checkpoint, imsize=imsize)
         self._model = _load_model(cfg, device=self.device)
-        self._extract, self._bucket = _make_extract_fn(self._model)
+        self._extract, self._bucket, self._multiple = _make_extract_fn(
+            self._model)
         self.model = model
         self.imsize = imsize
         self.scales = (1.0, 2 ** -0.5, 0.5) if multiscale else (1.0,)
@@ -393,15 +395,18 @@ class ImageExtractor:
     def __call__(self, images) -> np.ndarray:
         """[H, W, 3] uint8 RGB images (list) -> [n, D] fp32 descriptors."""
         prepped = []
+        dev = self._bucket is not None  # exact shapes: normalized on the host
         for img in images:
             img = np.asarray(img, np.uint8)
             if self.imsize:
                 img = imthumbnail(img, self.imsize)
-            prepped.append(np.ascontiguousarray(img))
+            prepped.append(np.ascontiguousarray(img) if dev else
+                           normalize(img.astype(np.float32) / 255.0))
         with self._lock:
             vecs = extract_vectors(
                 self._extract, prepped, scales=self.scales,
                 bucket=self._bucket, batch_size=self.batch_size,
-                device_scales=True, input_norm=(IMAGENET_MEAN, IMAGENET_STD),
+                extent_multiple=self._multiple, device_scales=dev,
+                input_norm=(IMAGENET_MEAN, IMAGENET_STD) if dev else None,
                 device=self.device)
         return np.asarray(vecs, np.float32)

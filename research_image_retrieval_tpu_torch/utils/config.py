@@ -4,7 +4,7 @@ the JAX fields and defaults plus ``device``, the presets of the families
 the port has (``gem_r50``, ``gem_r101``, ``token_r101``, ``spca_r101``,
 ``dolg_r101``, ``solar_r101``, ``delg_r50``, ``how_vlad_r50``,
 ``how_asmk_r50``, ``sosnet_r50``, ``spoc_r50``, ``senet_g2_r50``,
-``adaptive_hybrid_r50``), and ``EvalConfig`` with the fields that the
+``ultron_s``, ``adaptive_hybrid_r50``), and ``EvalConfig`` with the fields that the
 ported evaluation driver and ``cli.evaluate`` read.
 """
 
@@ -177,6 +177,12 @@ PRESETS: dict[str, dict[str, Any]] = {
     "sosnet_r50": dict(model="sosnet_r50", optimizer="adamw", base_lr=1e-3),
     "spoc_r50": dict(model="spoc_r50", optimizer="sgd", base_lr=0.01),
     "senet_g2_r50": dict(model="senet_g2_r50", optimizer="sgd", base_lr=0.01),
+    "ultron_s": dict(
+        # ULTRON paper schedule: AdamW(1e-3) x5 -> SGD(1e-2 cosine) x35
+        model="ultron_s", optimizer="adamw_then_sgd", base_lr=1e-3,
+        num_epochs=40, switch_epoch=5, batch_size=128, imsize=512,
+        clip_max_norm=1.0, weight_decay=0.05,
+    ),
     "adaptive_hybrid_r50": dict(
         model="adaptive_hybrid_r50", optimizer="adamw", base_lr=1e-3,
         num_epochs=8,

@@ -52,6 +52,7 @@ from research_image_retrieval_tpu_torch.models import (
     from_jax_variables,
 )
 from research_image_retrieval_tpu_torch.models import cvnet as tcvnet
+from research_image_retrieval_tpu_torch.models.backbone import same_pads
 from research_image_retrieval_tpu_torch.utils.config import EvalConfig
 from test_eval_driver import revisited_dir  # noqa: F401
 from test_torch_bf16 import _fill_variables
@@ -104,10 +105,10 @@ def test_center_pivot_conv4d_matches_jax(spec):
 
 
 def test_same_pads_are_flax_s():
-    assert tcvnet._same_pads(14, 5, 2) == (1, 2)
-    assert tcvnet._same_pads(8, 3, 2) == (0, 1)
-    assert tcvnet._same_pads(7, 3, 2) == (1, 1)
-    assert tcvnet._same_pads(7, 3, 1) == (1, 1)
+    assert same_pads(14, 5, 2) == (1, 2)
+    assert same_pads(8, 3, 2) == (0, 1)
+    assert same_pads(7, 3, 2) == (1, 1)
+    assert same_pads(7, 3, 1) == (1, 1)
 
 
 def test_group_norm_matches_flax():

@@ -207,4 +207,4 @@ def test_cli_list_presets(capsys):
     assert capsys.readouterr().out.split() == [
         "adaptive_hybrid_r50", "delg_r50", "dolg_r101", "gem_r101", "gem_r50",
         "how_asmk_r50", "how_vlad_r50", "senet_g2_r50", "solar_r101",
-        "sosnet_r50", "spca_r101", "spoc_r50", "token_r101"]
+        "sosnet_r50", "spca_r101", "spoc_r50", "token_r101", "ultron_s"]
