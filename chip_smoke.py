@@ -84,7 +84,14 @@ Phases (any failure raises and exits non-zero; there is no fallback):
      ultron_s`` and ``cli.extract --model clip_r50`` on the fixture as a
      Revisited dataset against the direct pipeline, the extents the model
      saw printed, and ``ImageExtractor`` answering an image query with
-     vit_b16 through its multiple 16.
+     vit_b16 through its multiple 16;
+ 13. the research prototypes: 13.1 spectrum_r50, iris_r50, sparse_r50
+     and hamlet_r50 as phase 9.1 (12 bottleneck and 0 head launches per
+     backbone pass; IRIS's gates and SPARSE's k, mask, bits and codes
+     compared first, the CPU run at the card's, a difference allowed
+     only within 1e-4 of its threshold and printed); 13.2 each one's
+     train step on the card against the CPU (``check_cuda_train_step``),
+     SPARSE and HAMLET with a seeded teacher table on the card.
 Every zoo phase's CUDA-vs-CPU comparison runs its two images in batches
 of two (no all-padding rows).
 The line before the last is the kernels' JSON summary; the last line is
@@ -1577,8 +1584,8 @@ def phase_train_cli(torch, gh, rb, smi: str) -> dict:
     real_step, real_guard = drv.make_train_step, drv.PreemptionGuard
     calls: list[float] = []
 
-    def timed_factory(input_norm=None):
-        step = real_step(input_norm)
+    def timed_factory(input_norm=None, teacher_table=None):
+        step = real_step(input_norm, teacher_table=teacher_table)
 
         def timed(state, imgs, labels):
             calls.append(time.perf_counter())
@@ -2600,77 +2607,123 @@ def phase_cvnet_rerank(torch, gh, rb, smi: str) -> dict:
 ZOO_TRANSFORMER = (("ultron_s", 0, 0, 512), ("vit_b16", 0, 0, 768),
                    ("clip_vit_b32", 0, 0, 512), ("clip_r50", 12, 0, 1024))
 NEAR_TAU = 1e-6  # a CDConv rate may differ only this near a threshold
+NEAR_STEP = 1e-4  # a rounded or thresholded value may differ only this near
+
+
+def _half_gap(v):
+    """Distance of ``v`` from the nearest rounding boundary (k + 0.5)."""
+    return np.abs(v - np.floor(v) - 0.5)
+
+
+def _forced_cuda_vs_cpu(torch, what, run, gpu_model, cpu_model, module,
+                        specs, near: float = NEAR_STEP) -> float:
+    """The CUDA-vs-CPU check of a model with step functions on its
+    extraction path: ``specs`` is ``[(name, outputs, gaps)]`` over
+    functions ``module.<name>`` (each called once per batch and scale,
+    in the same order on both devices).  The card's calls are recorded,
+    then the CPU's, while the CPU run goes on at the card's outputs of
+    every such function (the same run where none differs), so that a
+    difference in one call does not carry into the next.
+    ``outputs(result)`` names a call's outputs as float64 numpy arrays;
+    ``gaps(args, cpu outputs)`` gives, per output, each element's
+    distance from its threshold or rounding boundary on the CPU.  An
+    output may differ only where that distance is below ``near`` (each
+    such element printed); the continuous inputs of every call are held
+    at 1e-5 and the descriptors at 1e-4.  Returns the largest error
+    held."""
+    reals = {name: getattr(module, name) for name, _, _ in specs}
+    calls = {key: {name: [] for name in reals} for key in ("card", "cpu")}
+
+    def recorder(key, name):
+        real, card, mine = reals[name], calls["card"][name], \
+            calls[key][name]
+
+        def rec(*args):
+            res = real(*args)
+            mine.append(([a.detach().cpu().double() if torch.is_tensor(a)
+                          else a for a in args], res))
+            if key == "card":
+                return res
+            if len(mine) > len(card):
+                raise AssertionError(f"{what}: more {name} calls on the "
+                                     f"CPU than the card's {len(card)}")
+            forced = card[len(mine) - 1][1]
+            if torch.is_tensor(forced):
+                return forced.cpu()
+            return tuple(t.cpu() for t in forced)
+
+        return rec
+
+    desc = {}
+    for key, dev, model in (("card", "cuda", gpu_model),
+                            ("cpu", "cpu", cpu_model)):
+        for name in reals:
+            setattr(module, name, recorder(key, name))
+        try:
+            desc[key] = run(model, dev)
+        finally:
+            for name, real in reals.items():
+                setattr(module, name, real)
+    err, near, counts = 0.0, 0, collections.Counter()
+    for name, outputs, gaps in specs:
+        card, cpu = calls["card"][name], calls["cpu"][name]
+        if len(card) != len(cpu) or not cpu:
+            raise AssertionError(f"{what}: {len(card)} {name} calls on the "
+                                 f"card, {len(cpu)} on the CPU")
+        for i, ((a_card, r_card), (a_cpu, r_cpu)) in enumerate(
+                zip(card, cpu)):
+            for a, b in zip(a_card, a_cpu):
+                if torch.is_tensor(b):
+                    err = max(err, check_close(f"{what} {name} input (call "
+                                               f"{i})", a, b, 0.0, 1e-5))
+            o_card, o_cpu = outputs(r_card), outputs(r_cpu)
+            dist = gaps([a.numpy() if torch.is_tensor(a) else a
+                         for a in a_cpu], o_cpu)
+            for out in o_cpu:
+                counts[out] += o_cpu[out].size
+                for idx in zip(*np.nonzero(o_card[out] != o_cpu[out])):
+                    d = float(dist[out][idx])
+                    print(f"{what} {name} call {i} {out}{[int(j) for j in idx]}: "
+                          f"{o_card[out][idx]:g} / {o_cpu[out][idx]:g} "
+                          f"(card / cpu), {d:.3e} from its threshold on the "
+                          "CPU")
+                    if d >= near:
+                        raise AssertionError(f"{what}: {out} differs "
+                                             f"{d:.3e} from its threshold")
+                    near += 1
+    err = max(err, check_close(
+        f"{what} cuda vs cpu", torch.from_numpy(desc["card"]),
+        torch.from_numpy(desc["cpu"]), 0.0, 1e-4))
+    print(f"{what}: "
+          + ", ".join(f"{len(calls['cpu'][n])} {n}" for n in reals)
+          + " calls; " + ", ".join(f"{n} {k} values"
+                                   for k, n in counts.items())
+          + f"; {near} near-threshold differences; descriptors held at 1e-4 "
+          "(the CPU at the card's selections)")
+    return err
 
 
 def _cdconv_cuda_vs_cpu(torch, what, run, gpu_model, cpu_model) -> float:
     """ULTRON's CUDA-vs-CPU check.  CDConv's dilation rates are a step
     function of its channel attention, so each ``dilation_rates`` call of
-    ``run`` (one per CDConv, batch and scale, in the same order on both
-    devices) is recorded: the card's rates, then the CPU's own, while the
-    CPU run goes on at the card's rates (the same run where none
-    differs), so that a difference at one CDConv does not carry into the
-    next.  A channel's rate may differ only where its CPU attention lies
-    within ``NEAR_TAU`` of ``tau1`` or ``tau2`` (each such channel
-    printed); any other difference fails.  Every call's attentions are
-    held at 1e-5 and the descriptors at 1e-4.  Returns the largest error
-    held."""
+    ``run`` (one per CDConv, batch and scale) is compared through
+    ``_forced_cuda_vs_cpu``: the CPU runs at the card's rates, a
+    channel's rate may differ only where its CPU attention lies within
+    ``NEAR_TAU`` of ``tau1`` or ``tau2`` (each printed), every call's
+    attentions are held at 1e-5 and the descriptors at 1e-4."""
     from research_image_retrieval_tpu_torch.models import ultron
 
-    real = ultron.dilation_rates
-    card, cpu = [], []
+    def rates(res):
+        return {"rate": (res[1].long() + 2 * res[2].long()).cpu().double()
+                .numpy()}
 
-    def code(rates):
-        return (rates[1].long() + 2 * rates[2].long()).cpu()
+    def gaps(args, out):
+        attn, tau1, tau2 = args
+        return {"rate": np.minimum(np.abs(attn - tau1), np.abs(attn - tau2))}
 
-    def on_card(attn, tau1, tau2):
-        rates = real(attn, tau1, tau2)
-        card.append((attn.detach().cpu().double(), code(rates)))
-        return rates
-
-    def on_cpu(attn, tau1, tau2):
-        cpu.append((attn.detach().double(), tau1, tau2,
-                    code(real(attn, tau1, tau2))))
-        if len(cpu) > len(card):
-            raise AssertionError(f"{what}: more CDConv calls on the CPU "
-                                 f"than the card's {len(card)}")
-        forced = card[len(cpu) - 1][1]
-        return forced == 0, forced == 1, forced == 2
-
-    desc = {}
-    for key, dev, model, rec in (("card", "cuda", gpu_model, on_card),
-                                 ("cpu", "cpu", cpu_model, on_cpu)):
-        ultron.dilation_rates = rec
-        try:
-            desc[key] = run(model, dev)
-        finally:
-            ultron.dilation_rates = real
-    if len(card) != len(cpu) or not cpu:
-        raise AssertionError(f"{what}: {len(card)} CDConv calls on the "
-                             f"card, {len(cpu)} on the CPU")
-    err, flips, channels = 0.0, 0, 0
-    for i, ((a_card, r_card), (a_cpu, tau1, tau2, r_cpu)) in enumerate(
-            zip(card, cpu)):
-        channels += a_cpu.numel()
-        err = max(err, check_close(f"{what} CDConv attention (call {i})",
-                                   a_card, a_cpu, 0.0, 1e-5))
-        for b, ch in zip(*np.nonzero((r_card != r_cpu).numpy())):
-            v = float(a_cpu[b, ch])
-            near = min(abs(v - tau1), abs(v - tau2))
-            print(f"{what} CDConv call {i} image {b} channel {ch}: rate "
-                  f"{int(r_card[b, ch])} / {int(r_cpu[b, ch])} (card / "
-                  f"cpu), attention card {float(a_card[b, ch]):.9f} cpu "
-                  f"{v:.9f}, {near:.3e} from a threshold")
-            if near >= NEAR_TAU:
-                raise AssertionError(f"{what}: a CDConv rate differs "
-                                     f"{near:.3e} from a threshold")
-            flips += 1
-    err = max(err, check_close(
-        f"{what} cuda vs cpu", torch.from_numpy(desc["card"]),
-        torch.from_numpy(desc["cpu"]), 0.0, 1e-4))
-    print(f"{what}: {len(cpu)} CDConv calls, {channels} channel rates, "
-          f"{flips} near-threshold differences; descriptors held at 1e-4 "
-          "(the CPU at the card's rates)")
-    return err
+    return _forced_cuda_vs_cpu(torch, what, run, gpu_model, cpu_model,
+                               ultron, [("dilation_rates", rates, gaps)],
+                               near=NEAR_TAU)
 
 
 def _calibrate_bn(torch, model):
@@ -2960,6 +3013,121 @@ def phase_transformer_entry_points(torch, gh, rb, smi: str,
     return out
 
 
+# model, bottleneck / head launches per backbone pass, D
+ZOO_PROTOTYPES = (("spectrum_r50", 12, 0, 512), ("iris_r50", 12, 0, 512),
+                  ("sparse_r50", 12, 0, 512), ("hamlet_r50", 12, 0, 512))
+def _iris_cuda_vs_cpu(torch, what, run, gpu_model, cpu_model) -> float:
+    """IRIS: CASTLE's gate ``sigmoid(.) > 0.5`` zeroes a whole image's
+    attended vector, so each gate is compared first (a difference only
+    within ``NEAR_STEP`` of 0.5) and the CPU runs at the card's gates."""
+    from research_image_retrieval_tpu_torch.models import iris
+
+    return _forced_cuda_vs_cpu(
+        torch, what, run, gpu_model, cpu_model, iris, [(
+            "causal_gate",
+            lambda gate: {"gate": gate.detach().cpu().double().numpy()},
+            lambda args, out: {"gate": np.abs(args[0] - args[1])})])
+
+
+def _sparse_cuda_vs_cpu(torch, what, run, gpu_model, cpu_model) -> float:
+    """SPARSE: its encoder's ``k``, mask and its quantizer's bits and
+    codes are step functions of continuous values, so both are compared
+    first: ``k`` where ``D (1 - sparsity)`` is within ``NEAR_STEP`` of a
+    .5 boundary, a mask bit where |x| is that near the threshold, bits
+    where ``2 + 6 importance`` and codes where the clipped ``x / scale +
+    zero_point`` are that near a .5 boundary; the CPU runs at the card's
+    selections."""
+    from research_image_retrieval_tpu_torch.models import sparse
+
+    def select_out(res):
+        k, threshold, mask = res
+        return {"k": k.detach().cpu().double().numpy(),
+                "mask": mask.detach().cpu().double().numpy()}
+
+    def select_gaps(args, out):
+        x, sparsity = args
+        sorted_abs = np.sort(np.abs(x), axis=1)
+        thr = np.take_along_axis(sorted_abs, out["k"].astype(int)[:, None]
+                                 - 1, axis=1)
+        return {"k": _half_gap(x.shape[1] * (1.0 - sparsity[:, 0])),
+                "mask": np.abs(np.abs(x) - thr)}
+
+    def codes_out(res):
+        return {"bits": res[0].detach().cpu().double().numpy(),
+                "codes": res[1].detach().cpu().double().numpy()}
+
+    def codes_gaps(args, out):
+        x_scaled, importance, lo, hi = args
+        qmax = 2.0 ** out["bits"] - 1.0
+        return {"bits": _half_gap(lo + (hi - lo) * importance),
+                "codes": _half_gap(np.minimum(np.maximum(x_scaled, 0.0),
+                                              qmax))}
+
+    return _forced_cuda_vs_cpu(
+        torch, what, run, gpu_model, cpu_model, sparse,
+        [("sparse_select", select_out, select_gaps),
+         ("quantize_codes", codes_out, codes_gaps)])
+
+
+def phase_prototypes(torch, gh, rb, smi: str) -> dict:
+    """Phase 13.1: the four research prototypes at full width and depth
+    through ``full_width_model`` (ResNet-50, 512-d, seeded weights): 12
+    bottleneck launches per backbone pass (HAMLET's taps of layer2-4
+    included) and no head launch (none is GeM -> whitening -> L2).
+    IRIS's and SPARSE's CUDA-vs-CPU checks compare their selections
+    first and run the CPU at the card's (``_iris_cuda_vs_cpu``,
+    ``_sparse_cuda_vs_cpu``)."""
+    imgs, labels, few = _zoo_inputs()
+    compares = {"iris_r50": _iris_cuda_vs_cpu,
+                "sparse_r50": _sparse_cuda_vs_cpu}
+    out = {}
+    for name, per_pass, heads, dim in ZOO_PROTOTYPES:
+        out[name], gpu_model = full_width_model(
+            torch, gh, rb, smi, "13.1", name, per_pass, heads, dim, imgs,
+            labels, few, compare=compares.get(name, _descriptors_close))
+        del gpu_model
+        torch.cuda.empty_cache()
+    return out
+
+
+# model, overrides, with a teacher table (text_dim 768, DistilBERT's)
+PROTOTYPE_STEPS = (("sparse_r50", {}, True), ("hamlet_r50", {}, True),
+                   ("spectrum_r50", {}, False),
+                   ("iris_r50", {"dropout": 0.0}, False))
+
+
+def phase_prototype_train(torch, smi: str) -> None:
+    """Phase 13.2: each prototype's train step on the card against the
+    CPU (``check_cuda_train_step`` at its SHAPE and BARS, float64, after
+    the float32 TF32 check), SPARSE and HAMLET distilling from a seeded
+    [classes, 768] teacher table held on the card and gathered there by
+    label; IRIS at dropout 0."""
+    from research_image_retrieval_tpu_torch.train.device_check import (
+        SHAPE,
+        check_cuda_train_step,
+    )
+
+    rng = np.random.default_rng(SHAPE["seed"] + 13)
+    for name, overrides, teacher in PROTOTYPE_STEPS:
+        table = None
+        if teacher:
+            table = torch.from_numpy(rng.standard_normal(
+                (SHAPE["classes"], 768)).astype(np.float32)).cuda()
+        t0 = time.perf_counter()
+        par = check_cuda_train_step(name, overrides, teacher_table=table)
+        print(f"train 13.2 {name}{' + teacher table' if teacher else ''}"
+              f"{' ' + str(overrides) if overrides else ''}: one step at "
+              f"batch {SHAPE['batch']}, {SHAPE['px']} px, resnet50, "
+              f"{SHAPE['classes']} classes, cuda vs cpu in float64 "
+              "(deviation / bar, worst leaf): "
+              + "; ".join(f"{k} {d:.2e} / {b} {leaf}"
+                          for k, (d, b, leaf) in par.items())
+              + f"; TF32 off in float32 ({time.perf_counter() - t0:.1f} s) "
+              f"[{smi}]")
+        del table
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     # cuBLAS reads this when the process makes its first handle; 7.2's
     # deterministic_mode() needs it (utils/profiling.py)
@@ -3143,6 +3311,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"zoo phase 12: {time.perf_counter() - t0:.1f} s [{smi}]")
 
+    # -- 13: SPECTRUM, IRIS, SPARSE, HAMLET and their train steps ----------
+    t0 = time.perf_counter()
+    prototypes = phase_prototypes(torch, gh, rb, smi)
+    phase_prototype_train(torch, smi)
+    torch.cuda.empty_cache()
+    print(f"zoo phase 13: {time.perf_counter() - t0:.1f} s [{smi}]")
+
     src = "research_image_retrieval_tpu_torch/csrc/"
     replaces = {
         "gem_head": "research_image_retrieval_tpu/ops/gem_pallas.py:84",
@@ -3173,7 +3348,9 @@ def main() -> int:
                             cvnet["launches"][name],
                         **{k: v["launches"][name]
                            for k, v in transformers.items()},
-                        **{k: v["launches"][name] for k, v in entry.items()}})
+                        **{k: v["launches"][name] for k, v in entry.items()},
+                        **{k: v["launches"][name]
+                           for k, v in prototypes.items()}})
                for name in ("gem_head", "bottleneck")]
     # the bf16 forms: their main path is a bf16 model's (7.3-bf16), its
     # extraction counted as ``launches``, its validation beside it

@@ -8,8 +8,11 @@ the same flags, plus ``--device``).
 ``--csv-path``, a GLDv2 image tree; without it the run trains on the
 deterministic synthetic classes.  ``--dtype bfloat16`` computes the
 backbone in bf16 (parameters, losses and optimizer stay fp32); fp32 is
-the default.  ``--data-parallel`` / ``--model-parallel`` > 1 and
-``--teacher`` raise (not ported yet).
+the default.  ``--data-parallel`` / ``--model-parallel`` > 1 raise
+(multi-GPU is not ported yet).  ``--teacher`` (sparse_r50, hamlet_r50)
+builds the text teacher's class table once on the host and distills
+from it; it needs the ``transformers`` package, and
+``--teacher-allow-random`` without cached pretrained files.
 
 ``--resume`` continues a run exactly on the CPU.  On CUDA it is bit-exact
 only when the whole run, first part and resumed part, executes inside
@@ -71,7 +74,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "instead of shipping uint8 and normalizing on the "
                         "device")
     p.add_argument("--teacher", action="store_true", default=None,
-                   help="distillation teacher; raises (not ported yet)")
+                   help="distill from an offline text teacher's class "
+                        "table (models with text_features: sparse, "
+                        "hamlet)")
     p.add_argument("--teacher-texts", default=None)
     p.add_argument("--teacher-model", default=None)
     p.add_argument("--teacher-allow-random", dest="teacher_allow_random",

@@ -47,7 +47,12 @@ from research_image_retrieval_tpu_torch.models.cvnet import (
 from research_image_retrieval_tpu_torch.models.delg import DELGModel
 from research_image_retrieval_tpu_torch.models.dolg import DOLGModel
 from research_image_retrieval_tpu_torch.models.gem import GeMModel
+from research_image_retrieval_tpu_torch.models.hamlet import (
+    HAMLETModel,
+    hamlet_loss,
+)
 from research_image_retrieval_tpu_torch.models.how import HOWModel
+from research_image_retrieval_tpu_torch.models.iris import IRISModel, iris_loss
 from research_image_retrieval_tpu_torch.models.layers import (
     Attention,
     Decoder,
@@ -68,7 +73,11 @@ from research_image_retrieval_tpu_torch.models.registry import (
 from research_image_retrieval_tpu_torch.models.senet_g2 import SENetG2Model
 from research_image_retrieval_tpu_torch.models.solar import SOLARModel
 from research_image_retrieval_tpu_torch.models.sosnet import SoSNetModel
+from research_image_retrieval_tpu_torch.models.sparse import (
+    SparseRetrievalModel,
+)
 from research_image_retrieval_tpu_torch.models.spca import SpCaModel
+from research_image_retrieval_tpu_torch.models.spectrum import SPECTRUMModel
 from research_image_retrieval_tpu_torch.models.spoc import SpoCModel
 from research_image_retrieval_tpu_torch.models.token import (
     TokenModel,
@@ -103,7 +112,9 @@ __all__ = [
     "DropPath",
     "Encoder",
     "GeMModel",
+    "HAMLETModel",
     "HOWModel",
+    "IRISModel",
     "LayerNorm",
     "MODEL_REGISTRY",
     "Mlp",
@@ -113,7 +124,9 @@ __all__ = [
     "ResNet",
     "SENetG2Model",
     "SOLARModel",
+    "SPECTRUMModel",
     "SoSNetModel",
+    "SparseRetrievalModel",
     "SpCaModel",
     "SpoCModel",
     "TABLE1_TO_MODEL_MAPPING",
@@ -132,6 +145,8 @@ __all__ = [
     "from_jax_variables",
     "get_model",
     "get_model_info",
+    "hamlet_loss",
+    "iris_loss",
     "list_available_models",
     "load_clip_visual_into",
     "load_features_resnet",

@@ -21,7 +21,12 @@
   scopes that flax gives modules made inside ``nn.compact_name_scope``
   methods (SpoC's ``_context`` / ``_features``, AdaptiveHybrid's
   ``descriptors``) are flattened into the model, where the port keeps
-  those modules.  ``qaff_from_flax``: the same for a ``QAFF``.
+  those modules.  The four research prototypes (SPECTRUM, IRIS, SPARSE, HAMLET) map
+  by the same rules: attention's ``MultiHeadDotProductAttention`` and
+  ``layers.Attention`` projections, the ``_ProjMLP`` LayerNorms,
+  ``ContextEnhancedConv``'s BN statistics, and SPARSE's bare ``scale``
+  and ``zero_point`` (a dict is a norm only when it holds nothing but
+  ``scale`` and ``bias``).  ``qaff_from_flax``: the same for a ``QAFF``.
 * ``load_torchvision_resnet``: a torchvision-layout ResNet state dict
   (optionally under a ``backbone.`` prefix) -> the port's ``ResNet``
   state dict; the names already agree.  ``load_pycls_resnet`` (the
@@ -117,8 +122,8 @@ def _heads_from_flax(params: dict, stats: dict, prefix: str, sd: dict):
                 sd[f"{key}.bias"] = _t(p["bias"])
         elif "embedding" in p:
             sd[f"{key}.weight"] = _t(p["embedding"])
-        elif "scale" in p:
-            sd[f"{key}.weight"] = _t(p["scale"])
+        elif set(p) <= {"scale", "bias"}:  # a norm (SPARSE's quantizer
+            sd[f"{key}.weight"] = _t(p["scale"])  # has a bare ``scale``)
             sd[f"{key}.bias"] = _t(p["bias"])
             if name in stats:  # BatchNorm; a LayerNorm has none
                 sd[f"{key}.running_mean"] = _t(stats[name]["mean"])
@@ -253,8 +258,11 @@ def seeded_init(module: nn.Module, seed: int) -> None:
     BN running mean 0.1 N, running var |N| + 0.5, other vectors 0.1 N.  Parameters a log or a square root
     reads (SpCa's ``pi`` and ``cov``) get |N| + 0.5, G2+'s ``g2_alpha``
     and ASMK's cluster ``weights`` 1 + 0.1 N; a learnable GeM ``gem_p``,
-    ULTRON's pooling exponent ``gamma``, CLIP's ``logit_scale`` and
-    RetrievalNet's EMA state ``arcface_t`` keep their values."""
+    ULTRON's pooling exponent ``gamma``, CLIP's ``logit_scale``,
+    RetrievalNet's EMA state ``arcface_t`` and SPARSE's quantizer
+    ``scale`` and ``zero_point`` keep their values (1 and 0 from the
+    constructor: at ``|0.1 N| + 1e-6`` the scale would divide the
+    features into saturation, every code at its ``2^bits - 1``)."""
     gen = torch.Generator().manual_seed(seed)
     sd = module.state_dict()
     with torch.no_grad():
@@ -262,7 +270,8 @@ def seeded_init(module: nn.Module, seed: int) -> None:
             t = sd[k]
             if (k.endswith("num_batches_tracked")
                     or k in ("gem_p", "arcface_t")
-                    or k.rsplit(".", 1)[-1] in ("gamma", "logit_scale")):
+                    or k.rsplit(".", 1)[-1] in ("gamma", "logit_scale",
+                                                "scale", "zero_point")):
                 continue
             v = torch.randn(tuple(t.shape), generator=gen, dtype=torch.float32)
             leaf = k.rsplit(".", 1)[-1]

@@ -17,7 +17,8 @@ flax-semantics normalizations and the dropout the zoo's heads use.
 * ``Dense`` — flax ``nn.Dense(dtype=...)``: a Linear computing in its
   input's dtype (fp32 parameters cast to it).
 * ``MultiHeadAttention`` — flax ``nn.MultiHeadDotProductAttention``
-  (self-attention, ``query`` / ``key`` / ``value`` / ``out`` with biases,
+  (self-attention, or cross-attention over ``kv`` tokens;
+  ``query`` / ``key`` / ``value`` / ``out`` with biases,
   the first three ``[heads, head_dim]`` as flax keeps them,
   the query divided by ``sqrt(head_dim)``, padded keys at the dtype's
   lowest value, the softmax in fp32) of the transformer towers.
@@ -100,8 +101,9 @@ class Dense(nn.Linear):
 
 
 class MultiHeadAttention(nn.Module):
-    """flax ``MultiHeadDotProductAttention`` as self-attention over
-    ``[B, N, dim]`` (``qkv_features = out_features = dim``).  The
+    """flax ``MultiHeadDotProductAttention`` over ``[B, N, dim]`` queries
+    (``qkv_features = out_features = dim``), self-attention or, with
+    ``kv`` [B, Nk, dim], cross-attention (flax's ``inputs_k = inputs_v``).  The
     projections run in the input's dtype; the logits are taken to fp32
     for the mask and the softmax (flax's ``force_fp32_for_softmax``), and
     the probabilities return to the input's dtype for the values."""
@@ -119,19 +121,22 @@ class MultiHeadAttention(nn.Module):
 
     @fp32_precision()
     def forward(self, x: torch.Tensor, key_mask: torch.Tensor | None = None,
-                causal: bool = False) -> torch.Tensor:
-        """``key_mask`` [B, N] (1 = real token) removes padded keys from
-        every query's softmax; ``causal`` lets token i see keys <= i."""
+                causal: bool = False,
+                kv: torch.Tensor | None = None) -> torch.Tensor:
+        """``key_mask`` [B, Nk] (1 = real token) removes padded keys from
+        every query's softmax; ``causal`` lets token i see keys <= i;
+        ``kv`` gives the keys' and values' tokens (default ``x``)."""
         B, N, _ = x.shape
         h = self.num_heads
         hd = self.dim // h
+        kv = x if kv is None else kv
 
         def heads(t):
-            return t.reshape(B, N, h, hd).transpose(1, 2)
+            return t.reshape(B, t.shape[1], h, hd).transpose(1, 2)
 
         q = heads(self.query(x)) / torch.sqrt(
             torch.tensor(float(hd), dtype=x.dtype, device=x.device))
-        logits = torch.matmul(q, heads(self.key(x)).transpose(-1, -2))
+        logits = torch.matmul(q, heads(self.key(kv)).transpose(-1, -2))
         logits = at_least_fp32(logits)
         low = torch.finfo(logits.dtype).min
         if key_mask is not None:
@@ -141,7 +146,7 @@ class MultiHeadAttention(nn.Module):
             tri = torch.ones(N, N, dtype=torch.bool, device=x.device).tril()
             logits = torch.where(tri, logits, low)
         attn = torch.softmax(logits, dim=-1).to(x.dtype)
-        out = torch.matmul(attn, heads(self.value(x)))
+        out = torch.matmul(attn, heads(self.value(kv)))
         return self.out(out.transpose(1, 2).reshape(B, N, self.dim))
 
 

@@ -1,6 +1,8 @@
 """The train step on the card against the same step on the CPU.
 
-One SGD step of GeM-R50 with ``TrainConfig``'s hyperparameters (lr 0.01,
+One SGD step of a registry model (default GeM-R50; any other with
+``model_overrides``, and a distillation model with a teacher table
+gathered in the step) with ``TrainConfig``'s hyperparameters (lr 0.01,
 nesterov momentum 0.9, weight decay 1e-4, clip 1.0) at a reduced size
 (batch 2, 128 px, ResNet-50, 512 classes), from one state and batch on
 both devices:
@@ -13,7 +15,12 @@ both devices:
   grad_norm, relative; each gradient leaf, relative to its largest
   magnitude; what the step moved in each parameter, relative to its
   largest change; the running statistics, relative to each leaf's
-  largest magnitude.
+  largest magnitude.  A gradient or change leaf that is zero by
+  construction (a convolution's bias feeding a train-mode BN, as in
+  HAMLET's context block: BN removes the mean, so only float64 rounding
+  is left, ~1e-19 of the step's largest gradient) has no scale of its
+  own: the leaves below ``BARS["zero leaves"]`` of the largest leaf's
+  magnitude on the CPU are held to stay below it on the card too.
 * in float32 on the card with TF32 switched on for cuDNN and cuBLAS
   around the call, to show that the step turns it off for the forward,
   ``backward()`` and the optimizer (a hook on the stem's output, whose
@@ -21,7 +28,10 @@ both devices:
   caller's flags afterwards.  TF32 does not apply to float64, so only
   this run can show it.
 
-Run it with ``check_cuda_train_step()``; it raises on a miss.
+Run it with ``check_cuda_train_step()`` (or ``check_cuda_train_step(
+"sparse_r50", teacher_table=...)``); it raises on a miss.  A model that
+drops (``dropout``) is checked at 0: the card's generator draws other
+bits than the CPU's.
 """
 
 from __future__ import annotations
@@ -49,13 +59,15 @@ BARS = {
     "gradient leaves": 1e-8,
     "parameter changes": 1e-6,
     "running statistics": 1e-9,
+    "zero leaves": 1e-12,
 }
 
 
 def _step(device: str, dtype: torch.dtype, x: np.ndarray, y: np.ndarray,
-          on_stem_grad=None) -> dict:
+          name: str, overrides: dict, table, on_stem_grad=None) -> dict:
     cfg = TrainConfig()
-    model = get_model("gem_r50", num_classes=SHAPE["classes"]).to(dtype)
+    model = get_model(name, num_classes=SHAPE["classes"],
+                      **overrides).to(dtype)
     state = create_train_state(
         model, SHAPE["seed"],
         make_sgd_optimizer(cfg.base_lr, momentum=cfg.momentum,
@@ -69,7 +81,10 @@ def _step(device: str, dtype: torch.dtype, x: np.ndarray, y: np.ndarray,
     hook = None
     if on_stem_grad is not None:
         hook = model.backbone.bn1.register_forward_hook(on_stem)
-    state, m = make_train_step(None)(state, torch.from_numpy(x).to(dtype), y)
+    if table is not None:  # the teacher table lives on the step's device
+        table = torch.as_tensor(table, dtype=dtype, device=device)
+    state, m = make_train_step(None, teacher_table=table)(
+        state, torch.from_numpy(x).to(dtype), y)
     if hook is not None:
         hook.remove()
 
@@ -84,18 +99,48 @@ def _step(device: str, dtype: torch.dtype, x: np.ndarray, y: np.ndarray,
                if "running" in k})
 
 
-def _worst_leaf(got: dict, want: dict) -> tuple[float, str]:
-    """The largest ``max |got - want| / max |want|`` over the leaves."""
+def _zero_leaves(want: dict) -> set:
+    """The leaves whose largest magnitude is below ``BARS["zero
+    leaves"]`` of the largest over all leaves."""
+    scale = max(float(v.abs().max()) for v in want.values())
+    return {k for k, v in want.items()
+            if float(v.abs().max()) <= BARS["zero leaves"] * scale}
+
+
+def _worst_leaf(got: dict, want: dict,
+                skip: set = frozenset()) -> tuple[float, str]:
+    """The largest ``max |got - want| / max |want|`` over the leaves not
+    in ``skip``."""
     devs = {k: float((got[k] - want[k]).abs().max()
-                     / want[k].abs().max().clamp(min=1e-300)) for k in want}
+                     / want[k].abs().max().clamp(min=1e-300))
+            for k in want if k not in skip}
     worst = max(devs, key=devs.get)
     return devs[worst], worst
 
 
-def check_cuda_train_step() -> dict:
+def _worst_zero_leaf(got: dict, want: dict,
+                     zero: set) -> tuple[float, str]:
+    """The largest ``max(|got|, |want|)`` over the ``zero`` leaves, over
+    the largest magnitude of any leaf on the CPU."""
+    if not zero:
+        return 0.0, ""
+    scale = max(float(v.abs().max()) for v in want.values())
+    devs = {k: max(float(got[k].abs().max()), float(want[k].abs().max()))
+            / scale for k in zero}
+    worst = max(devs, key=devs.get)
+    return devs[worst], worst
+
+
+def check_cuda_train_step(name: str = "gem_r50",
+                          model_overrides: dict | None = None,
+                          teacher_table=None) -> dict:
     """``{check: (deviation, bar, worst leaf or "")}`` of the float64
-    CUDA step against the CPU's, after the float32 TF32 check; raises
+    CUDA step of ``name`` (built with ``model_overrides``; with
+    ``teacher_table`` [SHAPE classes, text_dim] gathered by label in the
+    step) against the CPU's, after the float32 TF32 check; raises
     ``AssertionError`` on any miss."""
+    kw = dict(name=name, overrides=dict(model_overrides or {}),
+              table=teacher_table)
     rng = np.random.default_rng(SHAPE["seed"])
     B, px = SHAPE["batch"], SHAPE["px"]
     x = (rng.integers(0, 256, (B, px, px, 3)) / 255.0
@@ -113,7 +158,8 @@ def check_cuda_train_step() -> dict:
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
-        fp32 = _step("cuda", torch.float32, x.astype(np.float32), y, record)
+        fp32 = _step("cuda", torch.float32, x.astype(np.float32), y,
+                     on_stem_grad=record, **kw)
         after = (torch.backends.cudnn.allow_tf32,
                  torch.backends.cuda.matmul.allow_tf32)
     finally:
@@ -127,19 +173,26 @@ def check_cuda_train_step() -> dict:
         raise AssertionError(f"float32 step: loss {fp32['loss']}, non-finite "
                              f"gradients in {bad[:5]}")
 
-    want = _step("cpu", torch.float64, x, y)
-    got = _step("cuda", torch.float64, x, y)
+    want = _step("cpu", torch.float64, x, y, **kw)
+    got = _step("cuda", torch.float64, x, y, **kw)
     rel = lambda a, b: (abs(a - b) / abs(b), "")  # noqa: E731
+    zero_grads = _zero_leaves(want["grads"])
+    zero_changes = _zero_leaves(want["changes"])
     devs = {
         "loss": rel(got["loss"], want["loss"]),
         "grad_norm": rel(got["grad_norm"], want["grad_norm"]),
-        "gradient leaves": _worst_leaf(got["grads"], want["grads"]),
-        "parameter changes": _worst_leaf(got["changes"], want["changes"]),
+        "gradient leaves": _worst_leaf(got["grads"], want["grads"],
+                                       zero_grads),
+        "parameter changes": _worst_leaf(got["changes"], want["changes"],
+                                         zero_changes),
         "running statistics": _worst_leaf(got["stats"], want["stats"]),
+        "zero leaves": max(
+            _worst_zero_leaf(got["grads"], want["grads"], zero_grads),
+            _worst_zero_leaf(got["changes"], want["changes"], zero_changes)),
     }
     out = {k: (d, BARS[k], leaf) for k, (d, leaf) in devs.items()}
     miss = {k: v for k, v in out.items() if not v[0] <= v[1]}
     if miss:
-        raise AssertionError(f"float64 train step, cuda vs cpu (deviation, "
-                             f"bar, worst leaf): {miss}")
+        raise AssertionError(f"{name}: float64 train step, cuda vs cpu "
+                             f"(deviation, bar, worst leaf): {miss}")
     return out

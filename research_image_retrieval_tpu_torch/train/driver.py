@@ -17,8 +17,12 @@ wins; a model without the field gets a note); fp32 stays the default
 here, as in the JAX driver on every platform but the TPU.  What the JAX
 driver has and this one does not raise instead of running something
 else: ``data_parallel`` / ``model_parallel`` > 1 (multi-GPU is ROADMAP
-Queue 1 item 9) and ``teacher=True`` (item 12).  Curves are not drawn
-(``plot_freq``): the driver says so once.
+Queue 1 item 9).  ``teacher=True`` builds the distillation teacher's
+table once on the host (``build_teacher_table``) for the models that
+take ``text_features`` (sparse, hamlet); the steps gather it on the
+device.  Every ``plot_freq`` epochs the driver redraws
+``<directory>/curves.png`` (``train/plots.py``); where matplotlib is
+missing it prints why once and stops plotting, as the JAX driver does.
 
 Resume is exact on the CPU.  On CUDA it is bit-exact only when both the
 interrupted run and the resumed one execute inside
@@ -78,8 +82,8 @@ from research_image_retrieval_tpu_torch.train.schedule import (
 from research_image_retrieval_tpu_torch.utils.config import TrainConfig
 from research_image_retrieval_tpu_torch.utils.device import resolve_device
 
-__all__ = ["build_datasets", "build_optimizer", "check_config",
-           "model_kwargs", "train"]
+__all__ = ["build_datasets", "build_optimizer", "build_teacher_table",
+           "check_config", "model_kwargs", "train"]
 
 
 def check_config(cfg: TrainConfig) -> None:
@@ -90,13 +94,44 @@ def check_config(cfg: TrainConfig) -> None:
             f"data_parallel={cfg.data_parallel}, model_parallel="
             f"{cfg.model_parallel}: the port trains on one device; "
             "multi-GPU training is ROADMAP Queue 1 item 9")
-    if cfg.teacher:
-        raise NotImplementedError(
-            "teacher=True: the distillation teacher belongs to the sparse / "
-            "hamlet models, not ported yet (ROADMAP Queue 1 item 12)")
     if cfg.compute_dtype not in ("", "float32", "bfloat16"):
         raise ValueError(f"compute_dtype={cfg.compute_dtype!r}: '', "
                          "'float32' or 'bfloat16'")
+
+
+def build_teacher_table(cfg: TrainConfig, model, num_classes: int):
+    """``[num_classes, text_dim]`` float32 teacher embeddings for a
+    distillation model (one that takes ``text_features``): the class
+    texts (``cfg.teacher_texts``, one per line, or the synthetic
+    template) through ``data/teacher.TextTeacher`` once, on the host.
+    Raises for a model without ``text_features`` and for a table whose
+    width is not the model's ``text_dim``."""
+    from research_image_retrieval_tpu_torch.data.teacher import (
+        TextTeacher,
+        default_label_texts,
+        load_label_texts,
+    )
+
+    if "text_features" not in inspect.signature(model.forward).parameters:
+        raise ValueError(
+            f"--teacher set but model {cfg.model!r} takes no text_features; "
+            "distillation models: sparse, hamlet")
+    texts = (load_label_texts(cfg.teacher_texts, num_classes)
+             if cfg.teacher_texts else default_label_texts(num_classes))
+    teacher = TextTeacher(cfg.teacher_model,
+                          max_length=cfg.teacher_max_length,
+                          allow_random_init=cfg.teacher_allow_random)
+    table = teacher.class_table(texts)
+    want = getattr(model, "text_dim", None)
+    if want is not None and table.shape[1] != want:
+        raise ValueError(
+            f"teacher text_dim {table.shape[1]} != model text_dim {want}; "
+            f"set model_overrides text_dim={table.shape[1]} or pick a "
+            "matching teacher")
+    print(f">> teacher table: {table.shape[0]} classes x {table.shape[1]} "
+          f"dims ({'pretrained' if teacher.pretrained else 'random-init'} "
+          f"{cfg.teacher_model})")
+    return table
 
 
 def model_kwargs(cfg: TrainConfig) -> dict:
@@ -301,8 +336,10 @@ def train(cfg: TrainConfig, max_steps_per_epoch: int | None = None):
         print(f">> resumed from checkpoint {ep} (optimizer phase '{phase}') "
               f"at loop epoch {start_epoch}, data step {train_it.step}")
 
-    train_step = make_train_step(input_norm)
-    eval_step = make_eval_step(input_norm)
+    teacher_table = (build_teacher_table(cfg, state.model, num_classes)
+                     if cfg.teacher else None)
+    train_step = make_train_step(input_norm, teacher_table=teacher_table)
+    eval_step = make_eval_step(input_norm, teacher_table=teacher_table)
 
     history = {"train_loss": [], "val_loss": [], "val_top1_err": [],
                "preempted": False}
@@ -368,10 +405,17 @@ def train(cfg: TrainConfig, max_steps_per_epoch: int | None = None):
             mgr.save(epoch + 1, snapshot(), metric=val_metric)
 
         if cfg.plot_freq and (epoch + 1) % cfg.plot_freq == 0:
-            print(">> curve plotting unavailable: the port draws no curves "
-                  "(matplotlib is not a dependency); the history is in "
-                  "metrics.jsonl")
-            cfg = dataclasses.replace(cfg, plot_freq=0)
+            try:
+                from research_image_retrieval_tpu_torch.train.plots import (
+                    plot_curves,
+                )
+
+                plot_curves(history,
+                            os.path.join(cfg.directory, "curves.png"),
+                            title=f"{cfg.model} training")
+            except Exception as e:  # matplotlib is an optional channel
+                print(f">> curve plotting unavailable: {e}")
+                cfg = dataclasses.replace(cfg, plot_freq=0)
 
     guard.restore()
     close_writers()

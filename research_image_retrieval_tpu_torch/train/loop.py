@@ -7,8 +7,12 @@ the backward convolutions after the forward's own block has closed, and
 cuDNN's TF32 default would be back on there.  A model built with
 ``dtype=bfloat16`` runs its backbone in bf16 (``models/backbone.py``);
 the loss, the gradients of the fp32 parameters and the optimizer stay
-fp32, as in the JAX step.  One device, no mesh: the JAX ``mesh``,
-``donate`` and ``teacher_table`` arguments are not ported.
+fp32, as in the JAX step.  One device, no mesh: the JAX ``mesh`` and
+``donate`` arguments are not ported.  ``teacher_table`` (the frozen
+``[num_classes, text_dim]`` teacher embeddings of ``data/teacher.py``)
+is held on the model's device; each step gathers ``table[labels]``
+there and passes it to the model as ``text_features``, as the JAX step
+does.
 """
 
 from __future__ import annotations
@@ -93,7 +97,22 @@ def _takes_generator(model: nn.Module) -> bool:
     return bool(getattr(_unwrapped(model), "takes_generator", False))
 
 
-def make_train_step(input_norm=None):
+class _Teacher:
+    """A teacher table moved to the model's device once (on first use)
+    and gathered there by label."""
+
+    def __init__(self, table):
+        self.table = None if table is None else torch.as_tensor(table)
+
+    def kwargs(self, labels: torch.Tensor) -> dict:
+        if self.table is None:
+            return {}
+        if self.table.device != labels.device:
+            self.table = self.table.to(labels.device)
+        return {"text_features": self.table[labels]}
+
+
+def make_train_step(input_norm=None, teacher_table=None):
     """``step(state, images, labels) -> (state, metrics)``: uint8 (or
     normalized float) NHWC batches in, normalized on the device with
     ``input_norm=(mean, std)``; one forward, backward and optimizer step,
@@ -102,8 +121,11 @@ def make_train_step(input_norm=None):
     before clipping).  A model whose train forward returns a third value,
     ``{buffer name: new value}`` (RetrievalNet's ``arcface_t``, the JAX
     step's ``model_state``), has those buffers written after the update.
-    The state is updated in place and returned."""
+    ``teacher_table`` [num_classes, text_dim] (array or tensor) adds
+    ``text_features=table[labels]``, gathered on the device.  The state
+    is updated in place and returned."""
     prep = fused_input_norm(input_norm)
+    teacher = _Teacher(teacher_table)
 
     def step_fn(state: TrainState, images, labels):
         model, opt = state.model, state.optimizer
@@ -113,7 +135,7 @@ def make_train_step(input_norm=None):
         # step's dropout generator (on the model's device), so a resumed
         # run drops what the straight run dropped
         seed = int(torch.randint(2 ** 62, (1,), generator=state.rng))
-        kw = {}
+        kw = teacher.kwargs(y)
         if _takes_generator(model):
             kw["generator"] = torch.Generator(device=dev).manual_seed(seed)
         model.train()
@@ -133,19 +155,23 @@ def make_train_step(input_norm=None):
     return step_fn
 
 
-def make_eval_step(input_norm=None):
+def make_eval_step(input_norm=None, teacher_table=None):
     """``step(state, images, labels) -> metrics`` in eval mode (BN
     running statistics, no margin, the fused bottleneck kernel in the
     identity blocks, in its bf16 form for a bf16 model): ``loss``,
-    ``top1_err``, ``top5_err``."""
+    ``top1_err``, ``top5_err``.  ``teacher_table`` as in
+    ``make_train_step``, so the validation loss carries the same
+    distillation term."""
     prep = fused_input_norm(input_norm)
+    teacher = _Teacher(teacher_table)
 
     def step_fn(state: TrainState, images, labels):
         model = state.model
         x, y = _to_device(images, labels, next(model.parameters()).device)
         model.eval()
         with torch.no_grad(), fp32_precision():
-            loss, logits = model(prep(x), y, train=False)
+            loss, logits = model(prep(x), y, train=False,
+                                 **teacher.kwargs(y))
         e1, e5 = topk_errors(logits, y, ks=(1, 5))
         return {"loss": loss, "top1_err": e1, "top5_err": e5}
 

@@ -17,6 +17,10 @@ the ``Optimizer`` that holds the state.  The JAX chain is
   before the momentum) or AdamW (decoupled decay, ``AdamW`` below), each
   with two parameter groups, because a parameter of rank <= 1 takes no
   decay.
+
+A ``Transform`` made by ``train/freeze.apply_freeze`` carries a
+``mask_fn``: the parameters it marks False stay out of all three (the
+``set_to_zero`` branch of the JAX package's ``optax.multi_transform``).
 """
 
 from __future__ import annotations
@@ -37,9 +41,14 @@ def weight_decay_mask(named_params) -> dict:
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """``sqrt(sum ||t||^2)`` over the tensors, as a device scalar."""
-    return torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(t) for t in tensors]))
+    """``sqrt(sum ||t||^2)`` over the tensors, as a device scalar in their
+    dtype.  On the CPU each tensor's norm accumulates in float64: torch's
+    float32 CPU norm of a 2.4M-element tensor is ~4e-5 from the exact
+    value, which moves every clipped update by as much against optax."""
+    acc = torch.float64 if tensors[0].device.type == "cpu" else None
+    norms = torch.stack([torch.linalg.vector_norm(t, dtype=acc)
+                         for t in tensors])
+    return torch.linalg.vector_norm(norms).to(tensors[0].dtype)
 
 
 class AdamW(torch.optim.Optimizer):
@@ -96,22 +105,30 @@ class Transform:
         self.clip_max_norm = clip_max_norm or 0.0
         self.update_every = max(int(update_every or 1), 1)
         self.hyper = hyper
+        self.mask_fn = None  # train/freeze.apply_freeze sets it
 
     def lr(self, count: int) -> float:
         lr = self.learning_rate
         return float(lr(count)) if callable(lr) else float(lr)
 
     def init(self, model: nn.Module) -> "Optimizer":
-        return Optimizer(self, list(model.named_parameters()))
+        trainable = None if self.mask_fn is None else self.mask_fn(model)
+        return Optimizer(self, list(model.named_parameters()), trainable)
 
 
 class Optimizer:
     """The state of a ``Transform`` bound to parameters.  Call
-    ``zero_grad()``, backward, then ``step()``."""
+    ``zero_grad()``, backward, then ``step()``.  ``trainable`` (``{name:
+    bool}``, default all) leaves the False ones unchanged: no update,
+    decay or state."""
 
-    def __init__(self, tx: Transform, named_params):
+    def __init__(self, tx: Transform, named_params,
+                 trainable: dict | None = None):
         self.tx = tx
         self.params = [p for _, p in named_params]
+        if trainable is not None:
+            named_params = [(n, p) for n, p in named_params if trainable[n]]
+        self.trained = [p for _, p in named_params]
         mask = weight_decay_mask(named_params)
         groups = [
             {"params": [p for n, p in named_params if mask[n]],
@@ -155,6 +172,9 @@ class Optimizer:
 
     def _step(self, grads) -> torch.Tensor:
         raw_norm = global_norm(grads)
+        if len(self.trained) < len(self.params):  # a frozen mask
+            ids = {id(p) for p in self.trained}
+            grads = [g for p, g in zip(self.params, grads) if id(p) in ids]
         k = self.tx.update_every
         if k > 1:
             n = self.mini_step
@@ -166,9 +186,10 @@ class Optimizer:
             if self.mini_step:
                 return raw_norm
             grads = self.acc
-        norm = raw_norm if k == 1 else global_norm(grads)
+        norm = (raw_norm if k == 1 and len(self.trained) == len(self.params)
+                else global_norm(grads))
         max_norm = self.tx.clip_max_norm
-        for p, g in zip(self.params, grads):
+        for p, g in zip(self.trained, grads):
             if max_norm > 0:
                 g = torch.where(norm < max_norm, g, g / norm * max_norm)
             p.grad = g

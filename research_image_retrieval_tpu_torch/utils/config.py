@@ -4,7 +4,8 @@ the JAX fields and defaults plus ``device``, the presets of the families
 the port has (``gem_r50``, ``gem_r101``, ``token_r101``, ``spca_r101``,
 ``dolg_r101``, ``solar_r101``, ``delg_r50``, ``how_vlad_r50``,
 ``how_asmk_r50``, ``sosnet_r50``, ``spoc_r50``, ``senet_g2_r50``,
-``ultron_s``, ``adaptive_hybrid_r50``), and ``EvalConfig`` with the fields that the
+``ultron_s``, ``adaptive_hybrid_r50``, ``sparse_r50``, ``hamlet_r50``:
+all of the JAX package's), and ``EvalConfig`` with the fields that the
 ported evaluation driver and ``cli.evaluate`` read.
 """
 
@@ -66,8 +67,9 @@ class TrainConfig:
     # or "bfloat16"; an explicit model_overrides["dtype"] wins
     compute_dtype: str = ""
 
-    # offline LLM-distillation teacher of the distillation models: not
-    # ported yet, teacher=True raises
+    # offline LLM-distillation teacher of the distillation models (sparse,
+    # hamlet): a [num_classes, text_dim] table built once on the host
+    # (data/teacher.py), gathered by label in the train step
     teacher: bool = False
     teacher_texts: str = ""  # one text per line, line i = class i; "" = synthetic template
     teacher_model: str = "distilbert-base-uncased"
@@ -84,8 +86,8 @@ class TrainConfig:
     # TensorBoard event files alongside JSONL; needs the tensorboard
     # package (raises without it)
     tensorboard: bool = False
-    # the JAX driver redraws <directory>/curves.png every N epochs; the
-    # port draws no curves (matplotlib is not a dependency) and says so
+    # redraw <directory>/curves.png every N epochs (train/plots.py); where
+    # matplotlib is missing the driver says so once and stops plotting
     plot_freq: int = 1
 
     # "cuda" (raises without a card) or "cpu"
@@ -187,6 +189,8 @@ PRESETS: dict[str, dict[str, Any]] = {
         model="adaptive_hybrid_r50", optimizer="adamw", base_lr=1e-3,
         num_epochs=8,
     ),
+    "sparse_r50": dict(model="sparse_r50", optimizer="adamw", base_lr=1e-3),
+    "hamlet_r50": dict(model="hamlet_r50", optimizer="adamw", base_lr=1e-3),
 }
 
 

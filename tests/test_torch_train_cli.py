@@ -11,7 +11,8 @@
 * the record-file path (``.rirrec``: the head's size from the largest
   label) trains;
 * what the port does not run raises: CUDA without a card, more than one
-  device, the teacher, bf16, TensorBoard without its package.
+  device, an unknown compute dtype, TensorBoard without its package (the
+  teacher trains: ``tests/test_torch_prototypes_train.py``).
 """
 
 import json
@@ -56,8 +57,10 @@ def test_cli_train_history_matches_jax(cli_run, tmp_path):
     assert [(r["step"], r["epoch"]) for r in got] == [
         (r["step"], r["epoch"]) for r in want] == [(2, 0.0), (4, 1.0)]
     assert all(np.isfinite(r["train_loss"]) for r in got)
-    assert sorted(os.listdir(cli_run)) == ["best.pt", "epoch_00002.pt",
-                                          "metrics.jsonl"]
+    # both CLIs draw curves.png (plot_freq 1, matplotlib present)
+    assert "curves.png" in os.listdir(d)
+    assert sorted(os.listdir(cli_run)) == ["best.pt", "curves.png",
+                                          "epoch_00002.pt", "metrics.jsonl"]
 
 
 def test_cli_evaluate_loads_trained_checkpoint(cli_run, tmp_path, capsys):
@@ -175,7 +178,6 @@ def test_train_from_records(tmp_path):
     (dict(device="cuda"), "cuda"),
     (dict(data_parallel=2), "Queue 1 item 9"),
     (dict(model_parallel=2), "Queue 1 item 9"),
-    (dict(teacher=True), "Queue 1 item 12"),
     (dict(compute_dtype="float16"), "compute_dtype"),
 ])
 def test_unported_options_raise(tmp_path, monkeypatch, override, match):
@@ -206,5 +208,6 @@ def test_cli_list_presets(capsys):
     assert main(["--list-presets"]) == 0
     assert capsys.readouterr().out.split() == [
         "adaptive_hybrid_r50", "delg_r50", "dolg_r101", "gem_r101", "gem_r50",
-        "how_asmk_r50", "how_vlad_r50", "senet_g2_r50", "solar_r101",
-        "sosnet_r50", "spca_r101", "spoc_r50", "token_r101", "ultron_s"]
+        "hamlet_r50", "how_asmk_r50", "how_vlad_r50", "senet_g2_r50",
+        "solar_r101", "sosnet_r50", "sparse_r50", "spca_r101", "spoc_r50",
+        "token_r101", "ultron_s"]

@@ -306,7 +306,8 @@ def test_registry_and_presets_match_jax():
              "senet_g2_r50", "adaptive_hybrid_r50", "token_r101",
              "token_r50", "retrievalnet_r101", "how_vlad_r50",
              "how_asmk_r50", "ultron_s", "ultron_b", "vit_s16", "vit_b16",
-             "clip_vit_b32", "clip_r50")
+             "clip_vit_b32", "clip_r50", "spectrum_r50", "iris_r50",
+             "sparse_r50", "hamlet_r50")
     assert set(tmodels.list_available_models()) == set(names)
     for n in names:
         assert tmodels.get_model_info(n) == jmodels.get_model_info(n), n
