@@ -91,7 +91,24 @@ Phases (any failure raises and exits non-zero; there is no fallback):
      compared first, the CPU run at the card's, a difference allowed
      only within 1e-4 of its threshold and printed); 13.2 each one's
      train step on the card against the CPU (``check_cuda_train_step``),
-     SPARSE and HAMLET with a seeded teacher table on the card.
+     SPARSE and HAMLET with a seeded teacher table on the card; 13.3 the
+     same for ultron_s (an AdamW step, then an SGD step after the
+     hand-off);
+ 14. multi-GPU (``parallel/``) on the one card: 14.1 NCCL at world size
+     1 (``init_distributed_mode(force=True)``): 7.1's step at full width
+     through ``make_train_step(mesh=...)`` against the plain step, three
+     steps from one init inside ``deterministic_mode()`` (parameters
+     within 1e-6 of their change; equal by design), and ms per step of
+     both; 14.2 ``parallel.dryrun_worker`` as two gloo ranks sharing the
+     card: the float64 train steps on (2, 1) and (1, 2) against the
+     single-device step at ``device_check``'s size, the cross-process
+     sharded search, and rank-sharded extraction of 16 fixture images at
+     full width (gem_r50, 1024 px ms3) against the single-process run
+     (descriptors within 1e-5, mAP equal, the ranks' kernel launches
+     summing to the single run's); 14.3 ``SearchService`` over the 1.4M x
+     2048 gallery sharded over ``["cuda:0"] * 4`` against the unsharded
+     service, exact (bf16 store) and int8: ids, scores and p50 at one
+     client.
 Every zoo phase's CUDA-vs-CPU comparison runs its two images in batches
 of two (no all-padding rows).
 The line before the last is the kernels' JSON summary; the last line is
@@ -108,6 +125,7 @@ import math
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -926,7 +944,6 @@ def phase_serving(torch, gh, rb, gpu_model, phase4_map) -> dict:
     an ``ImageExtractor``, and the CLI path's mAP against phase 4's.
     Returns each kernel's launch count per serving step."""
     import base64
-    import socket
     import threading
 
     from research_image_retrieval_tpu_torch.cli import extract as cli_extract
@@ -1584,8 +1601,8 @@ def phase_train_cli(torch, gh, rb, smi: str) -> dict:
     real_step, real_guard = drv.make_train_step, drv.PreemptionGuard
     calls: list[float] = []
 
-    def timed_factory(input_norm=None, teacher_table=None):
-        step = real_step(input_norm, teacher_table=teacher_table)
+    def timed_factory(input_norm=None, **kw):
+        step = real_step(input_norm, **kw)
 
         def timed(state, imgs, labels):
             calls.append(time.perf_counter())
@@ -3128,6 +3145,272 @@ def phase_prototype_train(torch, smi: str) -> None:
         torch.cuda.empty_cache()
 
 
+# token_r101 and spca_r101 are not here: in float64 their card-vs-CPU
+# deviations sit above ``device_check.BARS`` for reasons of their own
+# (ROADMAP Queue 1 item 12)
+ZOO_STEPS = (("ultron_s", ("adamw", "sgd")),)
+
+
+def phase_zoo_train(torch, smi: str) -> None:
+    """Phase 13.3: ultron_s's train steps on the card against the CPU
+    (``check_cuda_train_step``, float64, after the float32 TF32 check):
+    an AdamW step, then an SGD step after the hand-off, as
+    ``adamw_then_sgd`` does."""
+    from research_image_retrieval_tpu_torch.train.device_check import (
+        SHAPE,
+        check_cuda_train_step,
+    )
+
+    for name, optimizers in ZOO_STEPS:
+        t0 = time.perf_counter()
+        par = check_cuda_train_step(name, optimizers=optimizers)
+        print(f"train 13.3 {name} ({' -> '.join(optimizers)}): batch "
+              f"{SHAPE['batch']}, {SHAPE['px']} px, {SHAPE['classes']} "
+              "classes, cuda vs cpu in float64 (deviation / bar, worst "
+              "leaf): " + "; ".join(f"{k} {d:.2e} / {b} {leaf}"
+                                    for k, (d, b, leaf) in par.items())
+              + f"; TF32 off in float32 ({time.perf_counter() - t0:.1f} s) "
+              f"[{smi}]")
+        torch.cuda.empty_cache()
+
+
+def _free_port() -> int:
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    return port
+
+
+def phase_nccl_world_of_one(torch, smi: str, plain: dict) -> None:
+    """14.1: one NCCL rank (``init_distributed_mode(force=True)``) runs
+    7.1's step at full width (GeM-R50, 81,313-way ArcFace, 512 px uint8,
+    7.1's batch, SGD with TrainConfig's defaults) through
+    ``make_train_step(mesh=make_mesh(1, 1))``: every collective of the
+    layout runs (BN statistics and backward sums, the gradient buckets,
+    the metrics).  Three steps from one init inside
+    ``deterministic_mode()`` against the plain step's three (each leaf's
+    deviation over its largest change, bar 1e-6); then ms per step of
+    each, 3 steps between CUDA events after 1."""
+    import torch.distributed as dist
+
+    from research_image_retrieval_tpu_torch.data import (
+        IMAGENET_MEAN,
+        IMAGENET_STD,
+    )
+    from research_image_retrieval_tpu_torch.models import get_model
+    from research_image_retrieval_tpu_torch.parallel import (
+        init_distributed_mode,
+        make_mesh,
+    )
+    from research_image_retrieval_tpu_torch.train import (
+        create_train_state,
+        make_sgd_optimizer,
+        make_train_step,
+    )
+    from research_image_retrieval_tpu_torch.utils.config import TrainConfig
+    from research_image_retrieval_tpu_torch.utils.profiling import (
+        deterministic_mode,
+    )
+
+    t_phase = time.perf_counter()
+    init_distributed_mode(f"127.0.0.1:{_free_port()}", device="cuda:0",
+                          force=True, quiet_non_main=False)
+    try:
+        backend = dist.get_backend()
+        if backend != "nccl":
+            raise AssertionError(f"14.1 ran on {backend}, not NCCL")
+        mesh = make_mesh(1, 1)
+        cfg = TrainConfig()
+        tx = make_sgd_optimizer(cfg.base_lr, momentum=cfg.momentum,
+                                weight_decay=cfg.weight_decay,
+                                clip_max_norm=cfg.clip_max_norm)
+        state = create_train_state(get_model("gem_r50",
+                                             num_classes=TRAIN_CLASSES),
+                                   0, tx, device="cuda")
+        init = {k: v.detach().cpu() for k, v in
+                state.model.state_dict().items()}
+        B = plain["batch"]
+        g = torch.Generator(device="cuda").manual_seed(14)
+        batches = [(torch.randint(0, 256, (B, TRAIN_PX, TRAIN_PX, 3),
+                                  dtype=torch.uint8, device="cuda",
+                                  generator=g),
+                    torch.randint(0, TRAIN_CLASSES, (B,), device="cuda",
+                                  generator=g)) for _ in range(3)]
+        norm = (IMAGENET_MEAN, IMAGENET_STD)
+        steps = {"plain": make_train_step(norm),
+                 "nccl": make_train_step(norm, mesh=mesh)}
+
+        def fresh():
+            state.model.load_state_dict(init)
+            state.optimizer = tx.init(state.model)
+            state.step = 0
+
+        after, loss = {}, {}
+        for name, step in steps.items():
+            fresh()
+            with deterministic_mode():
+                for x, y in batches:
+                    _, m = step(state, x, y)
+            loss[name] = float(m["loss"])
+            after[name] = {n: p.detach().cpu() for n, p in
+                           state.model.named_parameters()}
+        devs = {}
+        for n, want in after["plain"].items():
+            change = (want - init[n]).abs().max().clamp(min=1e-30)
+            devs[n] = float((after["nccl"][n] - want).abs().max() / change)
+        worst = max(devs, key=devs.get)
+        if not devs[worst] <= 1e-6 or loss["plain"] != loss["nccl"]:
+            raise AssertionError(f"14.1: NCCL step vs plain: {worst} "
+                                 f"{devs[worst]:.3e} of its change (bar "
+                                 f"1e-6), losses {loss}")
+        ms = {}
+        for name, step in steps.items():
+            fresh()
+            step(state, *batches[0])
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda.synchronize()
+            a.record()
+            for x, y in batches:
+                step(state, x, y)
+            b.record()
+            b.synchronize()
+            ms[name] = a.elapsed_time(b) / len(batches)
+        print(f"train 14.1: NCCL at world size 1, GeM-R50 {TRAIN_CLASSES}-way "
+              f"ArcFace, {TRAIN_PX} px, batch {B}: 3 steps through "
+              f"make_train_step(mesh=(1, 1)) vs the plain step in "
+              f"deterministic_mode: worst leaf {worst} {devs[worst]:.3e} of "
+              f"its change (bar 1e-6), loss {loss['nccl']:.6f} == "
+              f"{loss['plain']:.6f}; ms per step (3 steps between CUDA "
+              f"events after 1): NCCL layout {ms['nccl']:.1f}, plain "
+              f"{ms['plain']:.1f} (7.1: {plain['ms']:.1f}); "
+              f"{time.perf_counter() - t_phase:.1f} s [{smi}]")
+        del state, batches, after, init
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dist_dryrun(torch, gh, rb, smi: str) -> dict:
+    """14.2: ``parallel.dryrun_worker`` as two gloo ranks sharing
+    ``cuda:0`` (the float64 layout steps at ``device_check``'s size, the
+    cross-process search, rank-sharded extraction of 16 fixture images
+    at full width); the ranks' launch counts must sum to the
+    single-process run's, both non-zero."""
+    work = os.path.join(ROOT, "build", "chip_smoke_dist")
+    os.makedirs(work, exist_ok=True)
+    imgs, labels = serving_fixture(2, 1024)
+    fixture = os.path.join(work, "fixture.npz")
+    np.savez(fixture, labels=np.asarray(labels),
+             **{f"img_{i}": im for i, im in enumerate(imgs)})
+    env = {**os.environ, "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(_free_port()), "WORLD_SIZE": "2"}
+    cmd = [sys.executable, "-m",
+           "research_image_retrieval_tpu_torch.parallel.dryrun_worker",
+           "--device", "cuda:0", "--size", "check", "--fixture", fixture]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd, cwd=ROOT, env={**env, "RANK": str(r)},
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in (0, 1)]
+    try:
+        outs = [p.communicate(timeout=400)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    shutil.rmtree(work, ignore_errors=True)
+    rows = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        line = [ln for ln in out.splitlines()
+                if ln.startswith(f"RANK{r}_DRYRUN_OK ")]
+        if p.returncode != 0 or not line:
+            raise AssertionError(f"14.2 rank {r} exited {p.returncode}:\n"
+                                 f"{out[-3000:]}")
+        rows.append(json.loads(line[0].split(" ", 1)[1]))
+    single = rows[0]["launches"]["single"]
+    summed = {k: sum(row["launches"]["sharded"][k] for row in rows)
+              for k in single}
+    if summed != single or 0 in single.values() or \
+            rows[1]["launches"]["single"] != single:
+        raise AssertionError(f"14.2 launches: ranks' sharded "
+                             f"{[row['launches']['sharded'] for row in rows]}"
+                             f" vs single {single}")
+    if rows[0]["mAP"] != rows[1]["mAP"]:
+        raise AssertionError(f"14.2 mAP {rows[0]['mAP']} vs {rows[1]['mAP']}")
+    steps = "; ".join(
+        f"{lay}: " + ", ".join(f"{k} {v:.2e}" for k, v in dev.items())
+        for lay, dev in rows[0]["steps"].items())
+    print(f"dist 14.2: dryrun_worker, 2 gloo ranks sharing cuda:0, "
+          f"{time.perf_counter() - t0:.1f} s: float64 layout steps vs the "
+          f"single-device step at batch 2, 128 px, resnet50, 512 classes "
+          f"(loss / grad_norm relative, parameters / BN statistics "
+          f"absolute; bars 1e-10 / 1e-9): {steps}; cross-process search "
+          f"exact + int8 ids == single engine; rank-sharded extraction of "
+          f"{rows[0]['images']} fixture images (gem_r50, 1024 px ms3, "
+          f"batch 1): max |dev| {max(r['extract_dev'] for r in rows):.3e} "
+          f"(bar 1e-5), mAP E/M/H {rows[0]['mAP']} on both ranks == single "
+          f"process; launches per rank {[r['launches']['sharded'] for r in rows]}"
+          f" sum to the single run's {single} [{smi}]")
+    return {"single": single, "ranks": [r["launches"]["sharded"]
+                                        for r in rows]}
+
+
+def phase_sharded_serving(torch, smi: str) -> None:
+    """14.3: ``SearchService`` over a 1.4M x 2048 gallery row-sharded over
+    ``["cuda:0"] * 4`` against the unsharded service, exact (bf16 store)
+    and int8: ids where the scores are distinct by more than 1e-6,
+    scores (int8 equal, exact within 1e-5), then p50 / p99 at one client
+    (40 one-query requests) of each."""
+    from research_image_retrieval_tpu_torch.serve import SearchService
+
+    t0 = time.perf_counter()
+    head = np.random.default_rng(14).standard_normal((16, 2048))
+    head = (head / np.linalg.norm(head, axis=1, keepdims=True)).astype(
+        np.float32)
+    g32, g16, q8, s8 = _build_gallery(torch, head, SERVE_N, seed=14)
+    del g32
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    rq = torch.randn((64, 2048), device="cuda", generator=gen)
+    queries = (rq / torch.linalg.vector_norm(rq, dim=1,
+                                             keepdim=True)).cpu().numpy()
+    shards = ["cuda:0"] * 4
+    for name, kw in (("exact-bf16", dict(gallery=g16, engine="exact",
+                                         store_dtype="bfloat16")),
+                     ("int8", dict(vecs_int8=q8, scales=s8,
+                                   engine="int8"))):
+        lat = {}
+        with SearchService(k=SERVE_K, max_batch=32, **kw) as one, \
+                SearchService(k=SERVE_K, max_batch=32, mesh=shards,
+                              **kw) as four:
+            one.warmup()
+            four.warmup()
+            s1, i1 = one.search(queries[:32])
+            s4, i4 = four.search(queries[:32])
+            n = _same_ids(f"14.3 {name} sharded vs unsharded", i4, i1, s1)
+            check_close(f"14.3 {name} scores", torch.from_numpy(s4),
+                        torch.from_numpy(s1), 0.0,
+                        0.0 if name == "int8" else 1e-5)
+            if four.stats()["shards"] != 4:
+                raise AssertionError(f"14.3 stats {four.stats()}")
+            for label, svc in (("unsharded", one), ("4 shards", four)):
+                lat[label] = _load_clients(svc, queries, 1, 40, SERVE_K)
+        print(f"serving 14.3 {name}: {SERVE_N} x 2048 over "
+              f"['cuda:0'] x 4 vs one shard: ids equal on {n} distinct "
+              f"scores of 32 x {SERVE_K}, scores "
+              f"{'equal' if name == 'int8' else 'within 1e-5'}; one client "
+              f"x 40 one-query requests, k={SERVE_K}: p50 "
+              f"{lat['4 shards']['p50']:.3f} ms sharded vs "
+              f"{lat['unsharded']['p50']:.3f} ms unsharded, p99 "
+              f"{lat['4 shards']['p99']:.3f} vs "
+              f"{lat['unsharded']['p99']:.3f} ms (host clock) [{smi}]")
+    del g16, q8, s8
+    torch.cuda.empty_cache()
+    print(f"serving 14.3: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     # cuBLAS reads this when the process makes its first handle; 7.2's
     # deterministic_mode() needs it (utils/profiling.py)
@@ -3315,8 +3598,16 @@ def main() -> int:
     t0 = time.perf_counter()
     prototypes = phase_prototypes(torch, gh, rb, smi)
     phase_prototype_train(torch, smi)
+    phase_zoo_train(torch, smi)
     torch.cuda.empty_cache()
     print(f"zoo phase 13: {time.perf_counter() - t0:.1f} s [{smi}]")
+
+    # -- 14: multi-GPU on the one card ------------------------------------
+    t0 = time.perf_counter()
+    phase_nccl_world_of_one(torch, smi, step32)
+    dist_run = phase_dist_dryrun(torch, gh, rb, smi)
+    phase_sharded_serving(torch, smi)
+    print(f"multi-GPU phase 14: {time.perf_counter() - t0:.1f} s [{smi}]")
 
     src = "research_image_retrieval_tpu_torch/csrc/"
     replaces = {
@@ -3350,7 +3641,11 @@ def main() -> int:
                            for k, v in transformers.items()},
                         **{k: v["launches"][name] for k, v in entry.items()},
                         **{k: v["launches"][name]
-                           for k, v in prototypes.items()}})
+                           for k, v in prototypes.items()}},
+                    dist_launches={
+                        "14.2 rank-sharded extraction, per rank":
+                            [r[name] for r in dist_run["ranks"]],
+                        "14.2 single process": dist_run["single"][name]})
                for name in ("gem_head", "bottleneck")]
     # the bf16 forms: their main path is a bf16 model's (7.3-bf16), its
     # extraction counted as ``launches``, its validation beside it

@@ -1,10 +1,12 @@
 """Serving daemon: HTTP top-k search over a saved descriptor index
-(port of ``research_image_retrieval_tpu/cli/serve.py``; ``--sharded`` is
-not ported yet).
+(port of ``research_image_retrieval_tpu/cli/serve.py``).
 
     python -m research_image_retrieval_tpu_torch.cli.serve \
-        --gallery index.npz --port 8080 [--engine int8] \
+        --gallery index.npz --port 8080 [--engine int8] [--sharded] \
         [--model gem_r50 --checkpoint gem_r50.pt --imsize 1024]
+
+``--sharded`` row-shards the index over every local GPU (one process;
+``parallel.default_search_mesh``), exact or int8 engine.
 
 Then:
 
@@ -46,6 +48,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="accepted; the exact engine always scores in fp32")
     p.add_argument("--selection", choices=("exact", "approx"),
                    default="exact", help="int8 engine selector")
+    p.add_argument("--sharded", action="store_true",
+                   help="row-shard the index over every local device "
+                        "(exact / int8 engines)")
     p.add_argument("--no-warmup", action="store_true",
                    help="skip running every query bucket at startup")
     p.add_argument("--verbose", action="store_true",
@@ -70,6 +75,14 @@ def main(argv=None):
         make_http_server,
     )
 
+    mesh = None
+    if args.sharded:
+        from research_image_retrieval_tpu_torch.parallel import (
+            default_search_mesh,
+        )
+
+        mesh = default_search_mesh(args.device)
+        print(f"sharding the gallery over {len(mesh)} devices")
     service = SearchService.from_npz(
         args.gallery,
         engine=args.engine,
@@ -80,6 +93,7 @@ def main(argv=None):
         exact_fp32_scores=args.exact_fp32_scores,
         selection=args.selection,
         device=args.device,
+        mesh=mesh,
     )
     extractor = None
     if args.model:

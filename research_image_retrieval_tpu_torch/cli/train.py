@@ -8,8 +8,15 @@ the same flags, plus ``--device``).
 ``--csv-path``, a GLDv2 image tree; without it the run trains on the
 deterministic synthetic classes.  ``--dtype bfloat16`` computes the
 backbone in bf16 (parameters, losses and optimizer stay fp32); fp32 is
-the default.  ``--data-parallel`` / ``--model-parallel`` > 1 raise
-(multi-GPU is not ported yet).  ``--teacher`` (sparse_r50, hamlet_r50)
+the default.  Multi-GPU: one process per GPU,
+
+    torchrun --nproc_per_node=N -m research_image_retrieval_tpu_torch.cli.train \
+        --data-parallel N [--model-parallel M] ...
+
+trains over an ``N x M`` layout of ``N * M`` processes (NCCL; ``--device
+cpu`` runs gloo) with the single-device run's global batch and semantics
+(``train/driver.py``).  A layout that is not the world size, or > 1
+without a launcher, raises with how to launch it.  ``--teacher`` (sparse_r50, hamlet_r50)
 builds the text teacher's class table once on the host and distills
 from it; it needs the ``transformers`` package, and
 ``--teacher-allow-random`` without cached pretrained files.
@@ -61,9 +68,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save-freq", type=int, default=None)
     p.add_argument("--num-workers", type=int, default=None)
     p.add_argument("--data-parallel", type=int, default=None,
-                   help="> 1 raises: multi-GPU is not ported yet")
+                   help="ranks on the data axis (default: the world size "
+                        "over --model-parallel); > 1 needs torchrun "
+                        "--nproc_per_node=data x model")
     p.add_argument("--model-parallel", type=int, default=None,
-                   help="> 1 raises: multi-GPU is not ported yet")
+                   help="ranks that split the ArcFace classifier on its "
+                        "feature dimension (default 1: kept whole)")
     p.add_argument("--dtype", dest="compute_dtype", default=None,
                    choices=("float32", "bfloat16"),
                    help="backbone compute dtype (default float32); the "

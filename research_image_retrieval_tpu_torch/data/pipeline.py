@@ -4,6 +4,11 @@ order for the same seed).
 
 * sharding by (shard_index, shard_count): each process reads its slice of
   the epoch permutation (default: one shard);
+* or by rows (``row_shard=(index, count)``, the multi-GPU trainer's
+  mode): the iterator walks the single-device run's global batches and
+  yields only rows ``[index * b / count, (index + 1) * b / count)`` of
+  each, decoding nothing else, so the ranks of a data axis together see
+  exactly the single-device run's batches;
 * deterministic epoch shuffling from ``np.random.default_rng((seed,
   epoch))``;
 * thread-pool decode/augment workers;
@@ -30,6 +35,9 @@ class ShardedBatchIterator:
       shard_index / shard_count: this process's shard (default: the
         only one).
       num_workers: decode worker threads (0 = synchronous).
+      row_shard: ``(index, count)``: yield only this block of rows of
+        each global batch of ``batch_size`` (which ``count`` must
+        divide).
       drop_last: drop the trailing partial batch (every step sees the same
         shapes).
     """
@@ -44,7 +52,17 @@ class ShardedBatchIterator:
         shard_count: int = 1,
         num_workers: int = 8,
         drop_last: bool = True,
+        row_shard: tuple[int, int] | None = None,
     ):
+        if row_shard is not None:
+            index, count = row_shard
+            if batch_size % count or not 0 <= index < count:
+                raise ValueError(f"row_shard {row_shard}: the global batch "
+                                 f"{batch_size} splits into {count} equal "
+                                 "blocks, one per data rank")
+            if (shard_count or 1) > 1 or not drop_last:
+                raise ValueError("row_shard needs drop_last=True (equal "
+                                 "blocks) and no shard_count")
         self.dataset = dataset
         self.batch_size = batch_size
         self.seed = seed
@@ -53,6 +71,7 @@ class ShardedBatchIterator:
         self.shard_count = max(shard_count or 1, 1)
         self.num_workers = num_workers
         self.drop_last = drop_last
+        self.row_shard = row_shard
         self.epoch = 0
         self.step = 0  # batch index within the current epoch
 
@@ -125,11 +144,12 @@ class ShardedBatchIterator:
         prefetch = getattr(self.dataset, "prefetch", None)
         while self.step < nsteps:
             lo = self.step * self.batch_size
-            batch_idx = idxs[lo : lo + self.batch_size]
+            batch_idx = self._rows(idxs[lo : lo + self.batch_size])
             if prefetch is not None and self.step + 1 < nsteps:
                 # overlap the NEXT batch's page-ins with this decode
                 # (RecordDataset -> native MADV_WILLNEED, data/records.py)
-                nxt = idxs[lo + self.batch_size : lo + 2 * self.batch_size]
+                nxt = self._rows(
+                    idxs[lo + self.batch_size : lo + 2 * self.batch_size])
                 try:
                     prefetch(nxt)
                 except Exception:
@@ -140,6 +160,14 @@ class ShardedBatchIterator:
             yield self._fetch(batch_idx)
         self.epoch += 1
         self.step = 0
+
+    def _rows(self, batch_idx: np.ndarray) -> np.ndarray:
+        """This rank's rows of a global batch (all without ``row_shard``)."""
+        if self.row_shard is None:
+            return batch_idx
+        index, count = self.row_shard
+        per = self.batch_size // count
+        return batch_idx[index * per : (index + 1) * per]
 
     def __iter__(self):
         while True:

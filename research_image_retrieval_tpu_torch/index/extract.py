@@ -21,7 +21,10 @@ fp32 buffer whose last row is a trash row for padding rows and skipped
 scales; the host reads a block back once.  On CUDA each batch is
 assembled in a pinned host buffer and copied with a non-blocking H2D copy
 on a side stream; ``pipeline_depth`` pinned slots bound how far the host
-runs ahead of the device.
+runs ahead of the device.  With a ``parallel.mesh.Mesh`` (indexing
+under ``torchrun``) the images are strided over the data ranks, each
+rank runs its own buckets, and the descriptors are gathered in input
+order.
 """
 
 from __future__ import annotations
@@ -37,6 +40,9 @@ from research_image_retrieval_tpu_torch.ops.norm import (
     l2_normalize,
 )
 from research_image_retrieval_tpu_torch.ops.resize import dense_resize_weights
+from research_image_retrieval_tpu_torch.utils.collectives import (
+    all_reduce_,
+)
 from research_image_retrieval_tpu_torch.utils.device import (
     fp32_precision,
     resolve_device,
@@ -472,6 +478,7 @@ def extract_vectors(
     pipeline_depth: int = 4,
     extent_multiple: int = 1,
     device="cuda",
+    mesh=None,
 ) -> np.ndarray:
     """Descriptors of a sequence of variable-resolution images.
 
@@ -504,10 +511,23 @@ def extract_vectors(
         nearest multiple before bucketing, and the bucket quantum rounds
         up to a multiple.  Bucketed mode only.
       device: "cuda" (default) or "cpu".
+      mesh: a ``parallel.mesh.Mesh``: every rank passes the same images,
+        rank ``r`` of the data axis extracts images ``r, r + W, ...``
+        through its own buckets, and every rank gets the descriptors in
+        input order (each image is extracted alone, with its own masks,
+        so they equal the single-process run's).
 
     Returns:
       [N, D] numpy descriptors in input order.
     """
+    if mesh is not None:
+        return _extract_over_ranks(
+            mesh, extract_fn, images, scales=scales,
+            outputdim=outputdim, print_freq=print_freq, bucket=bucket,
+            batch_size=batch_size, device_scales=device_scales,
+            input_norm=input_norm, block_cap=block_cap, antialias=antialias,
+            pipeline_depth=pipeline_depth, extent_multiple=extent_multiple,
+            device=device)
     dev = resolve_device(device)
     if input_norm is not None and (not device_scales or bucket is None):
         raise ValueError("input_norm requires device_scales=True and "
@@ -563,6 +583,29 @@ def extract_vectors(
         if n == 0:
             return np.zeros((0, outputdim or 0), dtype=np.float32)
         return stream.finish()
+
+
+def _extract_over_ranks(mesh, extract_fn, images, device, outputdim, **kw):
+    """``extract_vectors`` with the images strided over the data ranks and
+    the descriptors gathered (an ``all_reduce`` into a zero buffer, in
+    which each rank fills its own rows: exact)."""
+    group = mesh.group("data")
+    size, index = mesh.shape["data"], mesh.coords["data"]
+    mine = [img for i, img in enumerate(images) if i % size == index]
+    vecs = extract_vectors(extract_fn, mine, device=device,
+                           outputdim=outputdim, **kw)
+    dev = resolve_device(device)
+    counts = torch.zeros((size, 2), dtype=torch.float64, device=dev)
+    counts[index] = torch.tensor([vecs.shape[0], vecs.shape[1]],
+                                 dtype=torch.float64)
+    all_reduce_(counts, group)
+    n = int(counts[:, 0].sum())
+    dim = int(counts[:, 1].max()) if n else (outputdim or 0)
+    out = torch.zeros((n, dim), dtype=torch.float32, device=dev)
+    if len(vecs):
+        out[index::size] = torch.from_numpy(vecs).to(dev)
+    all_reduce_(out, group)
+    return out.cpu().numpy()
 
 
 def _extract_exact_shapes(extract_fn, imgs: list[np.ndarray], scales,

@@ -16,7 +16,10 @@ stem conv, the pool and every stride-2 block.
 
 Training mode follows flax's BatchNorm, not torch's (``BatchNorm``
 below): batch statistics normalize with the biased variance, and the
-running variance averages that biased variance.
+running variance averages that biased variance.  Inside
+``utils.collectives.active_mesh`` (a train step over a layout of
+ranks) the statistics are those of the global batch, over the data
+group, as JAX's are under GSPMD.
 
 ``dtype`` is the JAX model's compute dtype, with flax's semantics: at
 bf16 each convolution casts its input and its fp32 weight to bf16 and
@@ -40,6 +43,7 @@ stage returns its map, several return ``{stage: map}``.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -52,6 +56,7 @@ from research_image_retrieval_tpu_torch.ops.resblock import (
     fold_bn,
     fused_bottleneck,
 )
+from research_image_retrieval_tpu_torch.utils import collectives
 from research_image_retrieval_tpu_torch.utils.device import fp32_precision
 
 __all__ = ["BasicBlock", "BatchNorm", "BottleneckBlock", "Conv2d",
@@ -145,22 +150,37 @@ class _FlaxBatchNormTrain(torch.autograd.Function):
     eps) * scale) + bias``.  The backward is ATen's batch-norm backward
     given that mean and 1/std, which is the gradient of the same function
     (autodiff of the fast variance gives 2(x - mean)/n, as of the two-pass
-    one) and keeps only ``x`` for it, as cuDNN's batch norm does."""
+    one) and keeps only ``x`` for it, as cuDNN's batch norm does.
+
+    With a data ``group`` of ``size`` ranks (equal shards) ``E[x]`` and
+    ``E[x^2]`` are the means over the global batch: each rank's two
+    means, summed over the group and divided by ``size``.  The backward
+    then corrects ATen's local result by the difference between the
+    local and the global means of ``dy`` and ``dy * xhat`` (the two
+    per-channel sums SyncBatchNorm reduces, here ATen's ``grad_bias`` and
+    ``grad_weight``, summed over the group).  At one rank both
+    differences are exactly 0 and the result is the local one, bit for
+    bit."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps):
+    def forward(ctx, x, weight, bias, eps, group=None, size=1):
         # a bf16 input is reduced and normalized in fp32 and the output
         # rounded to bf16 (flax's force_float32_reductions)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         dims = (0, 2, 3)
         mean = xf.mean(dims)
-        var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+        meansq = (xf * xf).mean(dims)
+        if group is not None:
+            stats = torch.stack([mean, meansq])
+            dist.all_reduce(stats, group=group)
+            mean, meansq = stats / size
+        var = torch.clamp(meansq - mean * mean, min=0.0)
         invstd = torch.rsqrt(var + eps)
         shape = (1, -1, 1, 1)
         y = (xf - mean.view(shape)) * (invstd * weight).view(shape) \
             + bias.view(shape)
         ctx.save_for_backward(x, weight, mean, invstd)
-        ctx.eps = eps
+        ctx.eps, ctx.group, ctx.size = eps, group, size
         return y.to(x.dtype), mean, var
 
     @staticmethod
@@ -169,7 +189,21 @@ class _FlaxBatchNormTrain(torch.autograd.Function):
         gx, gw, gb = torch.ops.aten.native_batch_norm_backward(
             gy.contiguous(memory_format=_memory_format(x)), x, weight, None,
             None, mean, invstd, True, ctx.eps, [True, True, True])
-        return gx, gw, gb, None
+        if ctx.group is not None:
+            n = x.numel() // x.shape[1]
+            sums = torch.stack([gb, gw])
+            local = sums / n
+            total = sums.clone()
+            dist.all_reduce(total, group=ctx.group)
+            d_dy, d_dyx = (local - total / ctx.size / n).to(invstd.dtype)
+            # the correction (d_dy + xhat * d_dyx) * invstd * weight is
+            # k1 + k2 * x per channel: one fused pass over x
+            k2 = d_dyx * invstd * invstd * weight
+            k1 = d_dy * invstd * weight - k2 * mean
+            shape = (1, -1, 1, 1)
+            corr = torch.addcmul(k1.view(shape), x, k2.view(shape))
+            gx = (gx.to(corr.dtype) + corr).to(x.dtype)
+        return gx, gw, gb, None, None, None
 
 
 def _memory_format(x: torch.Tensor):
@@ -202,8 +236,12 @@ class BatchNorm(nn.BatchNorm2d):
             mul = torch.rsqrt(self.running_var + self.eps) * self.weight
             y = (x.float() - self.running_mean.view(shape)) * mul.view(shape)
             return (y + self.bias.view(shape)).to(x.dtype)
+        group, size = None, 1
+        axis = collectives.data_axis()
+        if axis is not None:
+            group, size, _ = axis
         y, mean, var = _FlaxBatchNormTrain.apply(x, self.weight, self.bias,
-                                                 self.eps)
+                                                 self.eps, group, size)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)

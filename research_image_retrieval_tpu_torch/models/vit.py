@@ -75,17 +75,19 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def resize_grid(grid: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """[S, S', C] -> [h, w, C] fp32 bilinear resize with antialias
-    (``jax.image.resize(..., "bilinear")``)."""
+    """[S, S', C] -> [h, w, C] bilinear resize with antialias
+    (``jax.image.resize(..., "bilinear")``), in fp32 or the grid's
+    float64 (weights too)."""
     dev = grid.device
+    g = at_least_fp32(grid)
 
     def weights(n_out, n_in):
         one = lambda v: torch.full((1,), v, dtype=torch.int32, device=dev)
-        return dense_resize_weights(one(n_in), one(n_out), n_in, n_out)[0]
+        return dense_resize_weights(one(n_in), one(n_out), n_in, n_out,
+                                    dtype=g.dtype)[0]
 
-    g = at_least_fp32(grid)
-    wh = weights(h, grid.shape[0]).to(g.dtype)
-    ww = weights(w, grid.shape[1]).to(g.dtype)
+    wh = weights(h, grid.shape[0])
+    ww = weights(w, grid.shape[1])
     return torch.einsum("hp,pqc,wq->hwc", wh, g, ww)
 
 
@@ -95,8 +97,8 @@ def per_image_grid(grid: torch.Tensor, h: int, w: int,
     ``extents`` ([B, 2] cells) in the top-left of an h x w canvas, zero
     elsewhere (``dynamic_resize_weights``)."""
     g = at_least_fp32(grid)
-    wh = dynamic_resize_weights(h, grid.shape[0], extents[:, 0]).to(g.dtype)
-    ww = dynamic_resize_weights(w, grid.shape[1], extents[:, 1]).to(g.dtype)
+    wh = dynamic_resize_weights(h, grid.shape[0], extents[:, 0], g.dtype)
+    ww = dynamic_resize_weights(w, grid.shape[1], extents[:, 1], g.dtype)
     return torch.einsum("bhp,pqc,bwq->bhwc", wh, g, ww)
 
 

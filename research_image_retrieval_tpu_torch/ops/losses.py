@@ -5,6 +5,14 @@
 
 The classifier weight is an explicit argument, as in the JAX functions;
 ``arcface_delg_logits`` returns its EMA state instead of mutating it.
+
+Inside ``utils.collectives.active_mesh`` the weight may be this
+rank's column shard ``[num_classes, D / model]`` (``parallel.mesh``):
+the row norms ``||w_c||^2`` and the partial dot products are then summed
+over the model group.  The batch statistics (MadaCos' median and means,
+DELG's mean target cosine) are taken over the global batch, over the
+data group; the losses themselves stay each rank's mean over its shard,
+whose gradients the train step averages.
 """
 
 from __future__ import annotations
@@ -18,8 +26,10 @@ from research_image_retrieval_tpu_torch.ops.norm import (
     at_least_fp32,
     l2_normalize,
 )
+from research_image_retrieval_tpu_torch.utils import collectives
 
-__all__ = ["arcface_delg_logits", "arcface_logits", "cross_entropy",
+__all__ = ["arcface_delg_logits", "arcface_logits", "class_cosines",
+           "cross_entropy",
            "madacos_loss", "topk_errors"]
 
 
@@ -32,6 +42,24 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (logz - target).mean()
 
 
+def class_cosines(features: torch.Tensor,
+                  weight: torch.Tensor) -> torch.Tensor:
+    """``l2n(features) @ l2n(weight).T`` ``[B, num_classes]`` in at least
+    fp32; a column-shard ``weight`` is reduced over the model group."""
+    feats = l2_normalize(at_least_fp32(features))
+    w = at_least_fp32(weight)
+    shard = collectives.model_shard(feats.shape[-1], w)
+    if shard is None:
+        return torch.matmul(feats, l2_normalize(w).t())
+    # both sums feed only what every rank of the group computes alike
+    # (the division and the loss), so their backward is the identity
+    group, cols = shard
+    sq = collectives.reduce_from_group((w * w).sum(-1), group)
+    dot = collectives.reduce_from_group(torch.matmul(
+        collectives.copy_to_group(feats, group)[:, cols], w.t()), group)
+    return dot / torch.clamp(torch.sqrt(sq), min=1e-12)
+
+
 def arcface_logits(features: torch.Tensor, weight: torch.Tensor,
                    labels: torch.Tensor, s: float = 64.0, m: float = 0.50,
                    eps: float = 1e-6) -> torch.Tensor:
@@ -41,8 +69,7 @@ def arcface_logits(features: torch.Tensor, weight: torch.Tensor,
     here.  The margin is added to the target class's angle only, and not
     where ``theta > pi - m`` (the angle would wrap).
     """
-    cos_theta = torch.matmul(l2_normalize(at_least_fp32(features)),
-                             l2_normalize(at_least_fp32(weight)).t())
+    cos_theta = class_cosines(features, weight)
     theta = torch.arccos(torch.clamp(cos_theta, -1.0 + eps, 1.0 - eps))
     one_hot = F.one_hot(labels.long(), weight.shape[0]).bool()
     selected = one_hot & ~(theta > (math.pi - m))
@@ -61,13 +88,12 @@ def arcface_delg_logits(features: torch.Tensor, weight: torch.Tensor,
     cos_m, sin_m = math.cos(m), math.sin(m)
     threshold = math.cos(math.pi - m)
     mm = math.sin(math.pi - m) * m
-    cos_theta = torch.matmul(l2_normalize(at_least_fp32(features)),
-                             l2_normalize(at_least_fp32(weight)).t())
-    cos_theta = torch.clamp(cos_theta, -1.0 + eps, 1.0 - eps)
+    cos_theta = torch.clamp(class_cosines(features, weight),
+                            -1.0 + eps, 1.0 - eps)
     target = torch.gather(cos_theta, 1, labels[:, None].long())  # [B, 1]
     sin_theta = torch.sqrt(torch.clamp(1.0 - target ** 2, min=0.0))
     cos_theta_m = target * cos_m - sin_theta * sin_m
-    new_t = (target.mean() * 0.01
+    new_t = (collectives.data_mean(target.mean()) * 0.01
              + 0.99 * t_state.reshape(())).detach().reshape(1)
     out = torch.where(cos_theta > cos_theta_m,
                       cos_theta * (new_t[0] + cos_theta), cos_theta)
@@ -90,16 +116,14 @@ def madacos_loss(features: torch.Tensor, weight: torch.Tensor,
     target and ``s cos`` elsewhere; cross entropy over them.  Scale and
     margin carry no gradient.  Returns ``(loss, {"scale", "margin",
     "logits"})``."""
-    feats = l2_normalize(at_least_fp32(features))
-    w = l2_normalize(at_least_fp32(weight))
-    cos = torch.matmul(feats, w.t())
+    cos = class_cosines(features, weight)
     lab = labels.long()
     target_cos = torch.gather(cos, 1, lab[:, None])[:, 0]
     if fixed_scale is not None:
         scale = torch.tensor(fixed_scale, dtype=cos.dtype, device=cos.device)
     else:
-        n = target_cos.shape[0]
-        median = torch.sort(target_cos.detach()).values[(n - 1) // 2]
+        every = collectives.data_gather(target_cos.detach())
+        median = torch.sort(every).values[(every.shape[0] - 1) // 2]
         scale = math.log((1.0 - t) * (1.0 - rho) / sigma) \
             / (1.0 - median + 1e-8)
     if fixed_margin is not None:
@@ -107,9 +131,10 @@ def madacos_loss(features: torch.Tensor, weight: torch.Tensor,
                               device=cos.device)
     else:
         one_hot = F.one_hot(lab, weight.shape[0]).to(cos.dtype)
-        mean_cos = target_cos.detach().mean()
+        mean_cos = collectives.data_mean(target_cos.detach().mean())
         neg_cos = cos.detach() * (1.0 - one_hot)
-        exp_sum = torch.exp(scale * neg_cos).sum(dim=1).mean()
+        exp_sum = collectives.data_mean(
+            torch.exp(scale * neg_cos).sum(dim=1).mean())
         margin = torch.clamp(
             mean_cos - 0.5 * torch.log(rho * exp_sum / (1.0 - rho) + 1e-8),
             0.0, 1.0)

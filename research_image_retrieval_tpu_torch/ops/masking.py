@@ -67,9 +67,11 @@ def mask_attn_logits(logits: torch.Tensor,
     return torch.where(m.reshape(shape), logits, _NEG)
 
 
-def dynamic_resize_weights(n_out: int, n_in: int,
-                           true_out: torch.Tensor) -> torch.Tensor:
-    """Per-image bilinear resize weights ``[B, n_out, n_in]`` fp32: what
+def dynamic_resize_weights(n_out: int, n_in: int, true_out: torch.Tensor,
+                           dtype: torch.dtype = torch.float32
+                           ) -> torch.Tensor:
+    """Per-image bilinear resize weights ``[B, n_out, n_in]`` fp32 (or
+    ``dtype``): what
     ``jax.image.resize(method="bilinear", antialias=True)`` gives from
     ``n_in`` samples to each image's TRUE length ``true_out`` ([B] ints),
     in the first ``true_out`` rows of the padded ``n_out`` grid (zero rows
@@ -77,4 +79,5 @@ def dynamic_resize_weights(n_out: int, n_in: int,
     CLIP's attention pool) are resized per image with it.  It is
     ``dense_resize_weights`` with the whole input valid."""
     n = torch.full_like(true_out, n_in)
-    return dense_resize_weights(n, true_out, n_in, n_out, antialias=True)
+    return dense_resize_weights(n, true_out, n_in, n_out, antialias=True,
+                                dtype=dtype)

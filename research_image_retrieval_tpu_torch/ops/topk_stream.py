@@ -170,8 +170,9 @@ def quantize_gallery_int8(gallery):
     q = torch.empty((n, d), dtype=torch.int8, device=g.device)
     scale = torch.empty((n,), dtype=torch.float32, device=g.device)
     # a tensor divisor: CUDA turns division by a Python scalar into a
-    # multiplication by its reciprocal, one ulp off IEEE division
-    d127 = torch.tensor(127.0, dtype=torch.float32, device=g.device)
+    # multiplication by its reciprocal, one ulp off IEEE division; made
+    # by a fill on the device (a host copy would wait for the stream)
+    d127 = torch.full((), 127.0, dtype=torch.float32, device=g.device)
     for b in range(0, n, _QUANT_BLOCK):
         blk = g[b:b + _QUANT_BLOCK].to(torch.float32)
         s = torch.clamp(blk.abs().amax(dim=1) / d127, min=1e-12)

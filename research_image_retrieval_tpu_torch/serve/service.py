@@ -1,6 +1,5 @@
 """Resident top-k search service with query micro-batching
-(port of ``research_image_retrieval_tpu/serve/service.py``, single
-device; the sharded ``mesh`` form is not ported yet).
+(port of ``research_image_retrieval_tpu/serve/service.py``).
 
 The service
 
@@ -12,6 +11,13 @@ The service
   set of shapes and ``torch._int_mm`` always gets its >16 rows, and
 * coalesces concurrent requests into one engine call inside a batching
   window (``window_ms``).
+
+With ``mesh`` (a list of devices, ``parallel.default_search_mesh()``:
+every local GPU; a device may repeat) the gallery is row-sharded over
+them and each engine call streams every shard on its own device and
+merges the ``[Q, k]`` candidates on the first
+(``parallel/dist_search.py``); the exact and int8 engines only, as in
+JAX.
 
 All engine calls run on one worker thread, on a CUDA stream of its own;
 callers block on an event, so the service is safe to drive from any
@@ -46,6 +52,10 @@ from research_image_retrieval_tpu_torch.ops.topk_stream import (
     int8_streaming_topk,
     quantize_gallery_int8,
     scan_streaming_topk,
+)
+from research_image_retrieval_tpu_torch.parallel.dist_search import (
+    make_sharded_stream_fn,
+    place_sharded_gallery,
 )
 from research_image_retrieval_tpu_torch.utils.config import EvalConfig
 from research_image_retrieval_tpu_torch.utils.device import resolve_device
@@ -96,6 +106,8 @@ class SearchService:
       selection: int8 engine selector ("exact" group-max or "approx",
         both exact in the port).
       device: "cuda" (default; raises without a card) or "cpu".
+      mesh: a list of devices to row-shard the gallery over (the first
+        one merges and is the service's ``device``); None: one device.
     """
 
     def __init__(self, gallery=None, names=None, *, vecs_int8=None,
@@ -103,16 +115,24 @@ class SearchService:
                  max_batch: int = 32, window_ms: float = 2.0,
                  store_dtype: str = "bfloat16",
                  exact_fp32_scores: bool = False, selection: str = "exact",
-                 device="cuda"):
+                 device="cuda", mesh=None):
         if engine is None:
             engine = "int8" if vecs_int8 is not None else "exact"
         if engine not in ("exact", "approx", "int8"):
             raise ValueError(f"unknown engine {engine!r}")
+        if mesh is not None and engine == "approx":
+            raise ValueError(
+                "the sharded service supports engine='exact' or 'int8' "
+                "(use engine='int8', selection='approx' for the fast "
+                "serving point)")
         if selection not in ("exact", "approx"):
             raise ValueError(f"selection must be 'exact' or 'approx', "
                              f"got {selection!r}")
         del exact_fp32_scores  # always on
-        self.device = dev = resolve_device(device)
+        self._mesh = None if mesh is None else [resolve_device(d)
+                                                for d in mesh]
+        self.device = dev = (resolve_device(device) if mesh is None
+                             else self._mesh[0])
         self.engine = engine
         self.selection = selection
         with torch.no_grad():
@@ -137,6 +157,12 @@ class SearchService:
                                     getattr(torch, store_dtype))
                 self._qg = self._gscales = None
                 n, d = self._gallery.shape
+            if self._mesh is not None:  # row blocks, one per device
+                int8 = engine == "int8"
+                self._shards = place_sharded_gallery(
+                    self._qg if int8 else self._gallery, self._mesh,
+                    self._gscales if int8 else None)[:2]
+                self._qg = self._gscales = self._gallery = None
         self.n_gallery, self.dim = int(n), int(d)
         self.names = None if names is None else np.asarray(names)
         self.k = min(int(k), self.n_gallery)
@@ -145,7 +171,8 @@ class SearchService:
         self._stream = None
         if dev.type == "cuda":
             self._stream = torch.cuda.Stream(dev)
-            torch.cuda.synchronize(dev)  # the gallery is placed before use
+            for d in self._mesh or [dev]:
+                torch.cuda.synchronize(d)  # placed before use
 
         self._runs: dict[int, object] = {}  # bucket -> engine call
         self._queue: queue.Queue = queue.Queue()
@@ -163,6 +190,12 @@ class SearchService:
     def _make_run(self, bucket: int):
         """The engine call for a [bucket, D] query batch on the device."""
         k = self.k  # chunk=None: each engine's device default
+        if self._mesh is not None:
+            g, s = self._shards
+            run = make_sharded_stream_fn(
+                self._mesh, self.n_gallery, g[0].shape[0], k=k, chunk=None,
+                engine=self.engine, selection=self.selection)
+            return lambda q: run(q, g, s)
         if self.engine == "int8":
             qg, gs, sel = self._qg, self._gscales, self.selection
             return lambda q: int8_streaming_topk(q, qg, gs, k=k, chunk=None,
@@ -315,7 +348,7 @@ class SearchService:
             buckets = sorted(self._runs)
         out = {
             "engine": self.engine,
-            "shards": None,
+            "shards": None if self._mesh is None else len(self._mesh),
             "gallery_size": self.n_gallery,
             "dim": self.dim,
             "k": self.k,

@@ -10,6 +10,7 @@ from research_image_retrieval_tpu_torch.train.loop import (
     create_train_state,
     make_eval_step,
     make_train_step,
+    shard_train_state,
 )
 from research_image_retrieval_tpu_torch.train.metrics import (
     AverageMeter,
@@ -45,6 +46,7 @@ __all__ = [
     "make_sgd_optimizer",
     "make_train_step",
     "partial_load",
+    "shard_train_state",
     "warmup_cosine_schedule",
     "weight_decay_mask",
 ]

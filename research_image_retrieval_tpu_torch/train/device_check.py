@@ -23,15 +23,24 @@ both devices:
   magnitude on the CPU are held to stay below it on the card too.
 * in float32 on the card with TF32 switched on for cuDNN and cuBLAS
   around the call, to show that the step turns it off for the forward,
-  ``backward()`` and the optimizer (a hook on the stem's output, whose
-  gradient autograd computes last, records the flags) and restores the
+  ``backward()`` and the optimizer (a hook on the output of the first
+  convolution, the stem, whose gradient autograd computes last, records
+  the flags) and restores the
   caller's flags afterwards.  TF32 does not apply to float64, so only
   this run can show it.
 
 Run it with ``check_cuda_train_step()`` (or ``check_cuda_train_step(
 "sparse_r50", teacher_table=...)``); it raises on a miss.  A model that
-drops (``dropout``) is checked at 0: the card's generator draws other
-bits than the CPU's.
+drops is checked with every rate at 0 (``rate``, ``drop``,
+``attn_drop``, ``proj_drop`` and ``dropout`` of its modules): the card's
+generator draws other bits than the CPU's.  ``optimizers=("adamw",
+"sgd")`` takes one step of each, the second after the driver's hand-off
+(a fresh optimizer on the same parameters, as ULTRON's ``adamw_then_sgd``
+switches): every step's gradients are compared, and the changes of all
+steps together.  Under AdamW the update of a zero-by-construction leaf
+is ``lr * g / (|g| + eps)`` of its rounding noise, any size up to the
+learning rate and of either sign: such a leaf's gradient is held at
+the zero-leaf bar in that step, and its change is not compared.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ from research_image_retrieval_tpu_torch.train.loop import (
     make_train_step,
 )
 from research_image_retrieval_tpu_torch.train.optimizer import (
+    make_adamw_optimizer,
     make_sgd_optimizer,
 )
 from research_image_retrieval_tpu_torch.utils.config import TrainConfig
@@ -63,37 +73,65 @@ BARS = {
 }
 
 
-def _step(device: str, dtype: torch.dtype, x: np.ndarray, y: np.ndarray,
-          name: str, overrides: dict, table, on_stem_grad=None) -> dict:
+_RATES = ("rate", "drop", "attn_drop", "proj_drop", "dropout")
+
+
+def _no_dropout(model):
+    """Every dropout / drop-path rate of ``model``'s modules at 0."""
+    for mod in model.modules():
+        for attr in _RATES:
+            if isinstance(getattr(mod, attr, None), float):
+                setattr(mod, attr, 0.0)
+    return model
+
+
+def _optimizer(kind: str):
     cfg = TrainConfig()
-    model = get_model(name, num_classes=SHAPE["classes"],
-                      **overrides).to(dtype)
-    state = create_train_state(
-        model, SHAPE["seed"],
-        make_sgd_optimizer(cfg.base_lr, momentum=cfg.momentum,
-                           weight_decay=cfg.weight_decay,
-                           clip_max_norm=cfg.clip_max_norm), device=device)
+    if kind == "adamw":
+        return make_adamw_optimizer(cfg.base_lr,
+                                    weight_decay=cfg.weight_decay,
+                                    clip_max_norm=cfg.clip_max_norm)
+    return make_sgd_optimizer(cfg.base_lr, momentum=cfg.momentum,
+                              weight_decay=cfg.weight_decay,
+                              clip_max_norm=cfg.clip_max_norm)
+
+
+def _step(device: str, dtype: torch.dtype, x: np.ndarray, y: np.ndarray,
+          name: str, overrides: dict, table, optimizers=("sgd",),
+          on_stem_grad=None) -> dict:
+    model = _no_dropout(get_model(name, num_classes=SHAPE["classes"],
+                                  **overrides).to(dtype))
+    state = create_train_state(model, SHAPE["seed"],
+                               _optimizer(optimizers[0]), device=device)
     init = {n: p.detach().clone() for n, p in model.named_parameters()}
 
     def on_stem(mod, inputs, out):
         out.register_hook(on_stem_grad)
 
     hook = None
-    if on_stem_grad is not None:
-        hook = model.backbone.bn1.register_forward_hook(on_stem)
+    if on_stem_grad is not None:  # the first convolution: the stem
+        stem = next(m for m in model.modules()
+                    if isinstance(m, torch.nn.Conv2d))
+        hook = stem.register_forward_hook(on_stem)
     if table is not None:  # the teacher table lives on the step's device
         table = torch.as_tensor(table, dtype=dtype, device=device)
-    state, m = make_train_step(None, teacher_table=table)(
-        state, torch.from_numpy(x).to(dtype), y)
-    if hook is not None:
-        hook.remove()
-
     def cpu(t):
         return t.detach().to("cpu", torch.float64)
 
+    step = make_train_step(None, teacher_table=table)
+    grads = []
+    for i, kind in enumerate(optimizers):
+        if i:  # the hand-off: a fresh optimizer on the same parameters
+            state.optimizer = _optimizer(kind).init(model)
+            state.step = 0
+        state, m = step(state, torch.from_numpy(x).to(dtype), y)
+        grads.append({n: cpu(p.grad) for n, p in model.named_parameters()})
+        if hook is not None:
+            hook.remove()
+            hook = None
+
     return dict(
-        loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
-        grads={n: cpu(p.grad) for n, p in model.named_parameters()},
+        loss=float(m["loss"]), grad_norm=float(m["grad_norm"]), grads=grads,
         changes={n: cpu(p) - cpu(init[n]) for n, p in model.named_parameters()},
         stats={k: cpu(v) for k, v in model.state_dict().items()
                if "running" in k})
@@ -131,16 +169,39 @@ def _worst_zero_leaf(got: dict, want: dict,
     return devs[worst], worst
 
 
+def _compare(got: dict, want: dict, optimizers) -> dict:
+    """``{check: (deviation, worst leaf or "")}`` of two runs of ``_step``
+    (``want`` the reference)."""
+    rel = lambda a, b: (abs(a - b) / abs(b), "")  # noqa: E731
+    zero_grads = [_zero_leaves(g) for g in want["grads"]]
+    zero_changes = _zero_leaves(want["changes"])
+    noise_moved = set().union(*(z for z, kind in zip(zero_grads, optimizers)
+                                if kind == "adamw")) - zero_changes
+    steps = list(zip(got["grads"], want["grads"], zero_grads))
+    return {
+        "loss": rel(got["loss"], want["loss"]),
+        "grad_norm": rel(got["grad_norm"], want["grad_norm"]),
+        "gradient leaves": max(_worst_leaf(g, w, z) for g, w, z in steps),
+        "parameter changes": _worst_leaf(got["changes"], want["changes"],
+                                         zero_changes | noise_moved),
+        "running statistics": _worst_leaf(got["stats"], want["stats"]),
+        "zero leaves": max(
+            *(_worst_zero_leaf(g, w, z) for g, w, z in steps),
+            _worst_zero_leaf(got["changes"], want["changes"], zero_changes)),
+    }
+
+
 def check_cuda_train_step(name: str = "gem_r50",
                           model_overrides: dict | None = None,
-                          teacher_table=None) -> dict:
+                          teacher_table=None,
+                          optimizers=("sgd",)) -> dict:
     """``{check: (deviation, bar, worst leaf or "")}`` of the float64
     CUDA step of ``name`` (built with ``model_overrides``; with
     ``teacher_table`` [SHAPE classes, text_dim] gathered by label in the
-    step) against the CPU's, after the float32 TF32 check; raises
-    ``AssertionError`` on any miss."""
+    step; one step per entry of ``optimizers``) against the CPU's, after
+    the float32 TF32 check; raises ``AssertionError`` on any miss."""
     kw = dict(name=name, overrides=dict(model_overrides or {}),
-              table=teacher_table)
+              table=teacher_table, optimizers=tuple(optimizers))
     rng = np.random.default_rng(SHAPE["seed"])
     B, px = SHAPE["batch"], SHAPE["px"]
     x = (rng.integers(0, 256, (B, px, px, 3)) / 255.0
@@ -168,28 +229,15 @@ def check_cuda_train_step(name: str = "gem_r50",
     if not flags or any(any(f) for f in flags) or after != (True, True):
         raise AssertionError(f"TF32 flags during the backward {flags}, after "
                              f"the step {after} (want off, then restored)")
-    bad = [n for n, g in fp32["grads"].items() if not bool(g.isfinite().all())]
+    bad = [n for n, g in fp32["grads"][-1].items()
+           if not bool(g.isfinite().all())]
     if not np.isfinite(fp32["loss"]) or bad:
         raise AssertionError(f"float32 step: loss {fp32['loss']}, non-finite "
                              f"gradients in {bad[:5]}")
 
     want = _step("cpu", torch.float64, x, y, **kw)
     got = _step("cuda", torch.float64, x, y, **kw)
-    rel = lambda a, b: (abs(a - b) / abs(b), "")  # noqa: E731
-    zero_grads = _zero_leaves(want["grads"])
-    zero_changes = _zero_leaves(want["changes"])
-    devs = {
-        "loss": rel(got["loss"], want["loss"]),
-        "grad_norm": rel(got["grad_norm"], want["grad_norm"]),
-        "gradient leaves": _worst_leaf(got["grads"], want["grads"],
-                                       zero_grads),
-        "parameter changes": _worst_leaf(got["changes"], want["changes"],
-                                         zero_changes),
-        "running statistics": _worst_leaf(got["stats"], want["stats"]),
-        "zero leaves": max(
-            _worst_zero_leaf(got["grads"], want["grads"], zero_grads),
-            _worst_zero_leaf(got["changes"], want["changes"], zero_changes)),
-    }
+    devs = _compare(got, want, kw["optimizers"])
     out = {k: (d, BARS[k], leaf) for k, (d, leaf) in devs.items()}
     miss = {k: v for k, v in out.items() if not v[0] <= v[1]}
     if miss:

@@ -10,14 +10,25 @@ generator and data-iterator state, mid-epoch included).  Data: a packed
 ``.rirrec`` record file, the GLDv2 CSV layout, or the synthetic
 procedural classes.
 
-One device (``cfg.device``, default CUDA: raises without a card).
-``compute_dtype="bfloat16"`` builds a model with a ``dtype`` field at
-bf16, as the JAX driver does (an explicit ``model_overrides["dtype"]``
-wins; a model without the field gets a note); fp32 stays the default
-here, as in the JAX driver on every platform but the TPU.  What the JAX
-driver has and this one does not raise instead of running something
-else: ``data_parallel`` / ``model_parallel`` > 1 (multi-GPU is ROADMAP
-Queue 1 item 9).  ``teacher=True`` builds the distillation teacher's
+One process per device (``cfg.device``, default CUDA: raises without a
+card).  Under ``torchrun`` or SLURM (``WORLD_SIZE`` / ``SLURM_NTASKS``
+in the environment) the driver starts ``torch.distributed``
+(``parallel.init_distributed_mode``: NCCL on CUDA, gloo on the CPU) and
+trains over the ``cfg.data_parallel x cfg.model_parallel`` layout of
+ranks (None: every rank on that axis, JAX's "all devices"): each rank
+reads its rows of the single-device run's global batch
+(``ShardedBatchIterator(row_shard=...)``), the steps run with JAX's
+global-batch semantics (``train/loop.py``), and rank 0 alone writes the
+checkpoints (the sharded classifier gathered whole, so they load at any
+world size), the JSONL history, TensorBoard and ``curves.png``.  A layout
+that is not the world size, ``data_parallel`` / ``model_parallel`` > 1
+in one process, and a model whose training couples the batch in a way
+the step does not make global (``BATCH_COUPLED``) raise instead of
+training something else.  ``compute_dtype="bfloat16"`` builds a model
+with a ``dtype`` field at bf16, as the JAX driver does (an explicit
+``model_overrides["dtype"]`` wins; a model without the field gets a
+note); fp32 stays the default here, as in the JAX driver on every
+platform but the TPU.  ``teacher=True`` builds the distillation teacher's
 table once on the host (``build_teacher_table``) for the models that
 take ``text_features`` (sparse, hamlet); the steps gather it on the
 device.  Every ``plot_freq`` epochs the driver redraws
@@ -38,6 +49,8 @@ import inspect
 import os
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from research_image_retrieval_tpu_torch.data import (
     EvalTransform,
@@ -55,6 +68,12 @@ from research_image_retrieval_tpu_torch.models import (
     TABLE1_TO_MODEL_MAPPING,
     get_model,
 )
+from research_image_retrieval_tpu_torch.parallel import (
+    init_distributed_mode,
+    is_main_process,
+    local_device,
+    make_mesh,
+)
 from research_image_retrieval_tpu_torch.train.checkpoint import (
     CheckpointManager,
 )
@@ -62,6 +81,7 @@ from research_image_retrieval_tpu_torch.train.loop import (
     create_train_state,
     make_eval_step,
     make_train_step,
+    shard_train_state,
 )
 from research_image_retrieval_tpu_torch.train.metrics import (
     DeferredUpdate,
@@ -79,24 +99,83 @@ from research_image_retrieval_tpu_torch.train.preemption import (
 from research_image_retrieval_tpu_torch.train.schedule import (
     warmup_cosine_schedule,
 )
+from research_image_retrieval_tpu_torch.utils.collectives import (
+    all_reduce_,
+)
 from research_image_retrieval_tpu_torch.utils.config import TrainConfig
 from research_image_retrieval_tpu_torch.utils.device import resolve_device
 
-__all__ = ["build_datasets", "build_optimizer", "build_teacher_table",
-           "check_config", "model_kwargs", "train"]
+__all__ = ["BATCH_COUPLED", "build_datasets", "build_optimizer",
+           "build_teacher_table", "check_config", "model_kwargs",
+           "resolve_layout", "train"]
+
+# Train-mode operations that reduce over the batch beyond what the
+# multi-GPU step makes global (BN, TokenBatchNorm, MadaCos' statistics,
+# DELG's EMA target): at world size > 1 each rank would see only its
+# shard's pairs, so these models raise there (ROADMAP Queue 1 item 9).
+# name -> (the operation, whether only with a teacher table)
+BATCH_COUPLED = {
+    "spectrum_r50": ("BatchCASTLE / BatchNEXUS attention between the "
+                     "batch's samples (models/spectrum.py)", False),
+    "iris_r50": ("iris_loss's contrastive term over the batch's "
+                 "similarity matrix (models/iris.py)", False),
+    "adaptive_hybrid_r50": ("contrastive_loss, an InfoNCE over the batch's "
+                            "similarity matrix (models/adaptive_hybrid.py)",
+                            False),
+    "sparse_r50": ("the distillation cross entropy over the batch's "
+                   "student x teacher similarity matrix (models/sparse.py)",
+                   True),
+}
 
 
-def check_config(cfg: TrainConfig) -> None:
+def _launched_world() -> int:
+    """The world size of this run: the process group's, else what a
+    launcher put in the environment (``WORLD_SIZE``, then SLURM's, in
+    ``init_distributed_mode``'s order), else 1."""
+    if dist.is_initialized():
+        return dist.get_world_size()
+    if "WORLD_SIZE" in os.environ:
+        return int(os.environ["WORLD_SIZE"])
+    if "SLURM_NTASKS" in os.environ and "SLURM_PROCID" in os.environ:
+        return int(os.environ["SLURM_NTASKS"])
+    return 1
+
+
+def check_config(cfg: TrainConfig, world_size: int = 1) -> None:
     """Raise on what the port cannot run as asked (never a quiet
-    substitute)."""
-    if (cfg.data_parallel or 1) > 1 or (cfg.model_parallel or 1) > 1:
-        raise NotImplementedError(
-            f"data_parallel={cfg.data_parallel}, model_parallel="
-            f"{cfg.model_parallel}: the port trains on one device; "
-            "multi-GPU training is ROADMAP Queue 1 item 9")
+    substitute), for a run of ``world_size`` processes."""
     if cfg.compute_dtype not in ("", "float32", "bfloat16"):
         raise ValueError(f"compute_dtype={cfg.compute_dtype!r}: '', "
                          "'float32' or 'bfloat16'")
+    layout = (cfg.data_parallel or 1) * (cfg.model_parallel or 1)
+    if world_size > 1 or layout > 1:
+        name = TABLE1_TO_MODEL_MAPPING.get(cfg.model, cfg.model)
+        op, with_teacher = BATCH_COUPLED.get(name, (None, False))
+        if op and (cfg.teacher or not with_teacher):
+            raise NotImplementedError(
+                f"{cfg.model} couples the batch in training through {op}; "
+                "the multi-GPU step does not make that global, so it "
+                "trains on one process only (ROADMAP Queue 1 item 9)")
+
+
+def resolve_layout(cfg: TrainConfig):
+    """The ``parallel.Mesh`` to train over, or None for one process
+    outside ``torch.distributed``.  Starts the process group when the
+    environment holds a launcher's world (``WORLD_SIZE`` or SLURM's)."""
+    if not dist.is_initialized() and _launched_world() > 1:
+        init_distributed_mode(device=cfg.device)
+    data, model = cfg.data_parallel, cfg.model_parallel or 1
+    if not dist.is_initialized():
+        if (data or 1) * model > 1:
+            n = (data or 1) * model
+            raise ValueError(
+                f"data_parallel={data} x model_parallel={model} needs {n} "
+                "processes, one per GPU, and this is one process outside "
+                "torch.distributed; launch it with torchrun --nproc_per_node="
+                f"{n} -m research_image_retrieval_tpu_torch.cli.train "
+                f"--data-parallel {data or 1} --model-parallel {model} ...")
+        return None
+    return make_mesh(data=data, model=model)
 
 
 def build_teacher_table(cfg: TrainConfig, model, num_classes: int):
@@ -251,11 +330,15 @@ def _resume_target(cfg: TrainConfig, mgr: CheckpointManager):
 
 
 def train(cfg: TrainConfig, max_steps_per_epoch: int | None = None):
-    """Run the training loop on ``cfg.device``; returns (state, history).
+    """Run the training loop on ``cfg.device`` (this rank's device in a
+    distributed run); returns (state, history), the same on every rank.
     ``history["preempted"]`` is True when the guard stopped the run
     after a checkpoint."""
-    check_config(cfg)
-    device = resolve_device(cfg.device)
+    check_config(cfg, _launched_world())
+    mesh = resolve_layout(cfg)
+    device = (resolve_device(cfg.device) if mesh is None
+              else local_device(cfg.device))
+    main = is_main_process()
     train_ds, val_ds, num_classes = build_datasets(cfg)
 
     kwargs = model_kwargs(cfg)
@@ -263,29 +346,60 @@ def train(cfg: TrainConfig, max_steps_per_epoch: int | None = None):
     def new_model():
         return get_model(cfg.model, num_classes=num_classes, **kwargs)
 
+    def new_state(phase: str):
+        st = create_train_state(new_model(), cfg.seed,
+                                build_optimizer(cfg, ipe, phase), device)
+        return st if mesh is None else shard_train_state(st, mesh)
+
+    rows = (None if mesh is None
+            else (mesh.coords["data"], mesh.shape["data"]))
     train_it = ShardedBatchIterator(train_ds, cfg.batch_size, seed=cfg.seed,
-                                    num_workers=cfg.num_workers)
+                                    num_workers=cfg.num_workers,
+                                    row_shard=rows)
     val_it = ShardedBatchIterator(val_ds, cfg.batch_size, seed=cfg.seed,
-                                  shuffle=False, num_workers=cfg.num_workers)
+                                  shuffle=False, num_workers=cfg.num_workers,
+                                  row_shard=rows)
     ipe = train_it.steps_per_epoch()
     if max_steps_per_epoch:
         ipe = min(ipe, max_steps_per_epoch)
 
     os.makedirs(cfg.directory, exist_ok=True)
     mgr = CheckpointManager(cfg.directory, keep_every=cfg.keep_every)
-    jsonl = JsonlWriter(os.path.join(cfg.directory, "metrics.jsonl"))
+    jsonl = (JsonlWriter(os.path.join(cfg.directory, "metrics.jsonl"))
+             if main else None)
     tb = (TensorBoardWriter(os.path.join(cfg.directory, "tb"))
-          if cfg.tensorboard else None)
+          if cfg.tensorboard and main else None)
 
     def write_metrics(step: int, **metrics):
-        jsonl.write(step, **metrics)
-        if tb is not None:
-            tb.write(step, **metrics)
+        for w in (jsonl, tb):
+            if w is not None:
+                w.write(step, **metrics)
 
     def close_writers():
-        jsonl.close()
-        if tb is not None:
-            tb.close()
+        for w in (jsonl, tb):
+            if w is not None:
+                w.close()
+
+    def save(epoch: int, metric=None):
+        """Every rank gathers the state (a collective); rank 0 writes."""
+        payload = snapshot()
+        if main:
+            mgr.save(epoch, payload, metric=metric)
+        if mesh is not None:
+            dist.barrier()
+
+    # the guard's flag goes through a host-side gloo group: a CPU
+    # collective does not wait for the card's queue
+    flag_group = (None if mesh is None
+                  else dist.new_group(backend="gloo")
+                  if dist.get_backend() == "nccl" else dist.group.WORLD)
+
+    def stop_requested() -> bool:
+        """The guard's flag, set on any rank, seen by all."""
+        if mesh is None:
+            return guard.should_stop
+        flag = torch.tensor([float(guard.should_stop)])
+        return bool(all_reduce_(flag, flag_group)[0] > 0)
 
     # uint8 items: ship uint8 and normalize on the device in the steps
     input_norm = None
@@ -308,8 +422,7 @@ def train(cfg: TrainConfig, max_steps_per_epoch: int | None = None):
     start_epoch = 0
     if not cfg.resume:
         phase = phase_for(0)
-        state = create_train_state(new_model(), cfg.seed,
-                                   build_optimizer(cfg, ipe, phase), device)
+        state = new_state(phase)
     else:
         resume_mgr, resume_epoch = _resume_target(cfg, mgr)
         payload, ep = resume_mgr.restore(epoch=resume_epoch)
@@ -320,8 +433,7 @@ def train(cfg: TrainConfig, max_steps_per_epoch: int | None = None):
                   else ("main",))
         state, last_err = None, None
         for ph in phases:
-            try_state = create_train_state(
-                new_model(), cfg.seed, build_optimizer(cfg, ipe, ph), device)
+            try_state = new_state(ph)
             try:
                 try_state.load_state_dict(payload)
             except (ValueError, KeyError, RuntimeError) as e:
@@ -338,8 +450,10 @@ def train(cfg: TrainConfig, max_steps_per_epoch: int | None = None):
 
     teacher_table = (build_teacher_table(cfg, state.model, num_classes)
                      if cfg.teacher else None)
-    train_step = make_train_step(input_norm, teacher_table=teacher_table)
-    eval_step = make_eval_step(input_norm, teacher_table=teacher_table)
+    train_step = make_train_step(input_norm, teacher_table=teacher_table,
+                                 mesh=mesh)
+    eval_step = make_eval_step(input_norm, teacher_table=teacher_table,
+                               mesh=mesh)
 
     history = {"train_loss": [], "val_loss": [], "val_top1_err": [],
                "preempted": False}
@@ -350,8 +464,11 @@ def train(cfg: TrainConfig, max_steps_per_epoch: int | None = None):
         if (cfg.optimizer == "adamw_then_sgd" and not switched
                 and epoch >= cfg.switch_epoch):
             phase = "main"
-            state.optimizer = build_optimizer(cfg, ipe, phase).init(
-                state.model)
+            opt = build_optimizer(cfg, ipe, phase).init(state.model)
+            opt.set_sharding({p: state.shards[n] for n, p
+                              in state.model.named_parameters()
+                              if n in state.shards}, state.shard_group)
+            state.optimizer = opt
             state.step = 0
             switched = True
             print(f">> optimizer hand-off to SGD at epoch {epoch}")
@@ -367,8 +484,8 @@ def train(cfg: TrainConfig, max_steps_per_epoch: int | None = None):
             state, m = train_step(state, imgs, labels)
             dlog.update(loss=m["loss"], top1_err=m["top1_err"],
                         top5_err=m["top5_err"])
-            if guard.should_stop:
-                mgr.save(epoch + 1, snapshot())
+            if stop_requested():
+                save(epoch + 1)
                 print(f">> preemption checkpoint at epoch {epoch}, step "
                       f"{state.step} (data step {train_it.step}); exiting")
                 guard.restore()
@@ -402,9 +519,9 @@ def train(cfg: TrainConfig, max_steps_per_epoch: int | None = None):
             val_metric = vlog.meters["top1_err"].avg
 
         if (epoch + 1) % cfg.save_freq == 0:
-            mgr.save(epoch + 1, snapshot(), metric=val_metric)
+            save(epoch + 1, metric=val_metric)
 
-        if cfg.plot_freq and (epoch + 1) % cfg.plot_freq == 0:
+        if main and cfg.plot_freq and (epoch + 1) % cfg.plot_freq == 0:
             try:
                 from research_image_retrieval_tpu_torch.train.plots import (
                     plot_curves,

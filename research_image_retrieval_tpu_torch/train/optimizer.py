@@ -21,6 +21,12 @@ the ``Optimizer`` that holds the state.  The JAX chain is
 A ``Transform`` made by ``train/freeze.apply_freeze`` carries a
 ``mask_fn``: the parameters it marks False stay out of all three (the
 ``set_to_zero`` branch of the JAX package's ``optax.multi_transform``).
+
+Over a ``data x model`` layout (``parallel/mesh.py``) a column-sharded
+parameter (``Optimizer.set_sharding``) keeps its slots sharded with it;
+the global norm sums its squares over the model group, so clipping sees
+JAX's global norm, and ``state_dict`` gathers the slots whole (a
+checkpoint loads at any layout).
 """
 
 from __future__ import annotations
@@ -29,6 +35,8 @@ from typing import Callable
 
 import torch
 import torch.nn as nn
+
+from research_image_retrieval_tpu_torch.utils import collectives
 
 __all__ = ["AdamW", "Optimizer", "Transform", "global_norm", "make_adamw_optimizer",
            "make_sgd_optimizer", "weight_decay_mask"]
@@ -40,15 +48,22 @@ def weight_decay_mask(named_params) -> dict:
     return {n: p.ndim > 1 for n, p in named_params}
 
 
-def global_norm(tensors) -> torch.Tensor:
+def global_norm(tensors, sharded=None, group=None) -> torch.Tensor:
     """``sqrt(sum ||t||^2)`` over the tensors, as a device scalar in their
     dtype.  On the CPU each tensor's norm accumulates in float64: torch's
     float32 CPU norm of a 2.4M-element tensor is ~4e-5 from the exact
-    value, which moves every clipped update by as much against optax."""
+    value, which moves every clipped update by as much against optax.
+    ``sharded`` ([bool] per tensor) marks the shards whose squares are
+    summed over ``group`` (the other ranks hold the rest of them)."""
     acc = torch.float64 if tensors[0].device.type == "cpu" else None
     norms = torch.stack([torch.linalg.vector_norm(t, dtype=acc)
                          for t in tensors])
-    return torch.linalg.vector_norm(norms).to(tensors[0].dtype)
+    if not sharded or not any(sharded):
+        return torch.linalg.vector_norm(norms).to(tensors[0].dtype)
+    mask = torch.tensor(sharded, device=norms.device)
+    sq = norms * norms
+    shard_sq = collectives.all_reduce_(sq[mask].sum(), group)
+    return torch.sqrt(sq[~mask].sum() + shard_sq).to(tensors[0].dtype)
 
 
 class AdamW(torch.optim.Optimizer):
@@ -152,6 +167,32 @@ class Optimizer:
         self.count = 0       # inner updates made: the schedule's step
         self.mini_step = 0   # position inside an accumulation window
         self.acc = None      # running mean of the window's gradients
+        self.shards: dict = {}  # id(param) -> (columns, full width)
+        self.shard_group = None
+
+    def set_sharding(self, shards: dict, group):
+        """Mark column-sharded parameters: ``shards`` maps a parameter to
+        ``(columns it holds, full width)``; ``group`` holds the rest."""
+        self.shards = {id(p): v for p, v in shards.items()}
+        self.shard_group = group
+
+    def _sharded(self, params) -> list | None:
+        return [id(p) in self.shards for p in params] if self.shards else None
+
+    def _gather(self, p, t):
+        """A slot ``t`` of ``p`` whole (gathered over the shard group)."""
+        if (id(p) not in self.shards or not torch.is_tensor(t)
+                or t.shape != p.shape):
+            return t
+        cols, full = self.shards[id(p)]
+        return collectives.gather_columns(t, cols, full, self.shard_group)
+
+    def _scatter(self, p, t):
+        """This rank's columns of a whole slot ``t`` of ``p``."""
+        if (id(p) not in self.shards or not torch.is_tensor(t)
+                or t.shape == p.shape):
+            return t
+        return t[..., self.shards[id(p)][0]].contiguous()
 
     def zero_grad(self):
         for p in self.params:
@@ -171,7 +212,8 @@ class Optimizer:
                 p.grad = g
 
     def _step(self, grads) -> torch.Tensor:
-        raw_norm = global_norm(grads)
+        raw_norm = global_norm(grads, self._sharded(self.params),
+                               self.shard_group)
         if len(self.trained) < len(self.params):  # a frozen mask
             ids = {id(p) for p in self.trained}
             grads = [g for p, g in zip(self.params, grads) if id(p) in ids]
@@ -187,7 +229,8 @@ class Optimizer:
                 return raw_norm
             grads = self.acc
         norm = (raw_norm if k == 1 and len(self.trained) == len(self.params)
-                else global_norm(grads))
+                else global_norm(grads, self._sharded(self.trained),
+                                 self.shard_group))
         max_norm = self.tx.clip_max_norm
         for p, g in zip(self.trained, grads):
             if max_norm > 0:
@@ -202,21 +245,41 @@ class Optimizer:
             self.acc = None  # optax zeroes the window after an update
         return raw_norm
 
+    def _inner_params(self) -> list:
+        return [p for g in self.inner.param_groups for p in g["params"]]
+
     def state_dict(self) -> dict:
+        """The state, sharded slots gathered whole (a collective: every
+        rank of the layout calls it)."""
+        inner = self.inner.state_dict()
+        acc = self.acc
+        if self.shards:
+            order = self._inner_params()
+            inner["state"] = {
+                i: {k: self._gather(order[i], v) for k, v in st.items()}
+                for i, st in inner["state"].items()}
+            if acc is not None:
+                acc = [self._gather(p, a) for p, a in zip(self.trained, acc)]
         return {"kind": self.tx.kind, "count": self.count,
-                "mini_step": self.mini_step, "acc": self.acc,
-                "inner": self.inner.state_dict()}
+                "mini_step": self.mini_step, "acc": acc, "inner": inner}
 
     def load_state_dict(self, state: dict):
         if state["kind"] != self.tx.kind:
             raise ValueError(f"optimizer state of kind {state['kind']!r} "
                              f"cannot load into {self.tx.kind!r}")
-        self.inner.load_state_dict(state["inner"])
+        inner, acc = state["inner"], state["acc"]
+        if self.shards:
+            order = self._inner_params()
+            inner = {**inner, "state": {
+                i: {k: self._scatter(order[int(i)], v) for k, v in st.items()}
+                for i, st in inner["state"].items()}}
+            if acc is not None:
+                acc = [self._scatter(p, a) for p, a in zip(self.trained, acc)]
+        self.inner.load_state_dict(inner)
         self.count = int(state["count"])
         self.mini_step = int(state["mini_step"])
         dev = self.params[0].device
-        self.acc = (None if state["acc"] is None
-                    else [a.to(dev) for a in state["acc"]])
+        self.acc = None if acc is None else [a.to(dev) for a in acc]
 
 
 def make_sgd_optimizer(learning_rate, momentum: float = 0.9,

@@ -1,6 +1,6 @@
 """PyTorch port, the serving layer on the CPU: ``SearchService``
 micro-batching and the HTTP front end, mirroring ``tests/test_serve.py``
-(without its sharded cases, which the port does not have yet).
+(its sharded cases are in ``tests/test_torch_parallel.py``).
 
 Tolerances: the service returns what one direct engine call returns, ids
 equal and scores within 1e-6; the int8 index written in the JAX
@@ -296,5 +296,6 @@ def test_cli_serve_parser():
     args = build_parser().parse_args(["--gallery", "g.npz", "--device",
                                       "cpu", "--selection", "approx"])
     assert args.device == "cpu" and args.selection == "approx"
-    with pytest.raises(SystemExit):
-        build_parser().parse_args(["--gallery", "g.npz", "--sharded"])
+    assert args.sharded is False
+    args = build_parser().parse_args(["--gallery", "g.npz", "--sharded"])
+    assert args.sharded is True

@@ -148,8 +148,8 @@ def test_cli_train_sparse_teacher_matches_jax(tmp_path, monkeypatch):
     seen = {}
     real_step = drv.make_train_step
 
-    def recording(input_norm=None, teacher_table=None):
-        step = real_step(input_norm, teacher_table=teacher_table)
+    def recording(input_norm=None, teacher_table=None, mesh=None):
+        step = real_step(input_norm, teacher_table=teacher_table, mesh=mesh)
         seen["table"] = teacher_table
 
         def run(state, images, labels):

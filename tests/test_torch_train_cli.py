@@ -10,9 +10,12 @@
   resume tries each optimizer phase);
 * the record-file path (``.rirrec``: the head's size from the largest
   label) trains;
-* what the port does not run raises: CUDA without a card, more than one
-  device, an unknown compute dtype, TensorBoard without its package (the
-  teacher trains: ``tests/test_torch_prototypes_train.py``).
+* what the port does not run raises: CUDA without a card, a layout that
+  is not the world size, more than one rank in one process, a model whose
+  batch coupling the multi-GPU step does not make global, an unknown
+  compute dtype, TensorBoard without its package (the teacher trains:
+  ``tests/test_torch_prototypes_train.py``; multi-GPU training:
+  ``tests/test_torch_dist_multiprocess.py``).
 """
 
 import json
@@ -174,17 +177,38 @@ def test_train_from_records(tmp_path):
     assert state.step == 1 and np.isfinite(hist["train_loss"][0])
 
 
-@pytest.mark.parametrize("override, match", [
-    (dict(device="cuda"), "cuda"),
-    (dict(data_parallel=2), "Queue 1 item 9"),
-    (dict(model_parallel=2), "Queue 1 item 9"),
-    (dict(compute_dtype="float16"), "compute_dtype"),
+@pytest.mark.parametrize("override, match, world_of_one", [
+    (dict(device="cuda"), "cuda", False),
+    # a layout that is not the world size (a launched world of one)
+    (dict(data_parallel=2), r"mesh 2x1 != 1", True),
+    # more than one rank asked of one process outside torch.distributed
+    (dict(model_parallel=2), "torchrun --nproc_per_node=2", False),
+    # a model whose batch coupling the multi-GPU step does not make global
+    (dict(model="spectrum_r50", data_parallel=2), "BatchCASTLE", False),
+    (dict(compute_dtype="float16"), "compute_dtype", False),
 ])
-def test_unported_options_raise(tmp_path, monkeypatch, override, match):
+def test_unported_options_raise(tmp_path, monkeypatch, override, match,
+                                world_of_one):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises((NotImplementedError, RuntimeError, ValueError),
-                       match=match):
-        drv.train(_tiny_cfg(tmp_path, **override))
+    if world_of_one:
+        import socket
+
+        from research_image_retrieval_tpu_torch.parallel import (
+            init_distributed_mode,
+        )
+
+        with socket.socket() as s:
+            s.bind(("", 0))
+            port = s.getsockname()[1]
+        init_distributed_mode(f"localhost:{port}", device="cpu", force=True,
+                              quiet_non_main=False)
+    try:
+        with pytest.raises((NotImplementedError, RuntimeError, ValueError),
+                           match=match):
+            drv.train(_tiny_cfg(tmp_path, **override))
+    finally:
+        if world_of_one:
+            torch.distributed.destroy_process_group()
 
 
 def test_tensorboard_without_package_raises(tmp_path, monkeypatch):
