@@ -93,7 +93,9 @@ Phases (any failure raises and exits non-zero; there is no fallback):
      train step on the card against the CPU (``check_cuda_train_step``),
      SPARSE and HAMLET with a seeded teacher table on the card; 13.3 the
      same for ultron_s (an AdamW step, then an SGD step after the
-     hand-off);
+     hand-off), token_r101 (under ``device_check.RULES``: its zero
+     running mean at the zero-leaf bar, grad_norm against the CPU's
+     measured floor, printed) and spca_r101;
  14. multi-GPU (``parallel/``) on the one card: 14.1 NCCL at world size
      1 (``init_distributed_mode(force=True)``): 7.1's step at full width
      through ``make_train_step(mesh=...)`` against the plain step, three
@@ -101,16 +103,29 @@ Phases (any failure raises and exits non-zero; there is no fallback):
      within 1e-6 of their change; equal by design), and ms per step of
      both; 14.2 ``parallel.dryrun_worker`` as two gloo ranks sharing the
      card: the float64 train steps on (2, 1) and (1, 2) against the
-     single-device step at ``device_check``'s size, the cross-process
+     single-device step at ``device_check``'s size (and one (2, 1) step
+     each of iris_r50 and spectrum_r50, whose batch-wide operations see
+     the gathered global batch), the cross-process
      sharded search, and rank-sharded extraction of 16 fixture images at
      full width (gem_r50, 1024 px ms3) against the single-process run
      (descriptors within 1e-5, mAP equal, the ranks' kernel launches
      summing to the single run's); 14.3 ``SearchService`` over the 1.4M x
      2048 gallery sharded over ``["cuda:0"] * 4`` against the unsharded
      service, exact (bf16 store) and int8: ids, scores and p50 at one
-     client.
+     client;
+ 15. the split JPEG decode: ``cli.evaluate --model gem_r50 --multiscale
+     --dct-decode 4`` at full width on the phase-4 fixture's JPEGs laid
+     out as a Revisited dataset, plus a progressive JPEG and a 2,100 px
+     source in the gallery; the host half (the port's own entropy
+     decoder, built with g++, no libjpeg) against OpenCV's full decode,
+     the device half against the CPU's, every gallery file on the
+     coefficient path, the launches against the bucket plan's, two
+     descriptors against the CPU path, the mAP, the cosine to the RGB
+     path, the host decode ms, the wire bytes and img/s.
 Every zoo phase's CUDA-vs-CPU comparison runs its two images in batches
-of two (no all-padding rows).
+of two (no all-padding rows).  Phases 9-13 run the zoo fixture, 8
+classes x 8 at 1024 px (``ZOO_CLASSES``, half of phase 4's), warmed on
+its first 8 images, so that the script stays inside its time limit.
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Needs a CUDA device and the repo.
 """
@@ -328,8 +343,9 @@ def serving_slice(model, imgs, labels, scales, bucket: int, k: int,
     model's ``extent_multiple``), the full ranking
     (``rank_full``), each query's top-``k`` (``streaming_topk``, exact),
     and the Revisited E/M/H mAP (the first image of each class of 8 is a
-    query).  Raises unless the descriptors are finite unit vectors and
-    the top-k ids equal the ranking's head wherever scores are distinct.
+    query; ``k`` at most the image count).  Raises unless the descriptors
+    are finite unit vectors and the top-k ids equal the ranking's head
+    wherever scores are distinct.
     """
     from research_image_retrieval_tpu_torch.data import (
         IMAGENET_MEAN,
@@ -361,6 +377,7 @@ def serving_slice(model, imgs, labels, scales, bucket: int, k: int,
         raise AssertionError(f"descriptors not unit norm: {norms}")
     q_idx = np.arange(0, len(imgs), 8)
     ranks = rank_full(vecs[q_idx], vecs, device=device)
+    k = min(k, len(imgs))
     s, ids = streaming_topk(vecs[q_idx], vecs, k=k, device=device)
     gap = np.abs(np.diff(s, axis=1))
     distinct = np.ones_like(s, bool)
@@ -1950,10 +1967,11 @@ def full_width_model(torch, gh, rb, smi: str, label: str, name: str,
     """One zoo preset at full width and depth, seeded weights
     (``seeded_init(seed=0)``, 8 classes): CUDA against the port's CPU
     path on the two images ``few`` (ms3, bucket 128, batches of 2) by
-    ``compare`` (the descriptors at 1e-4); the phase-4 fixture through
-    ``serving_slice`` twice (the second run warm: img/s on the host
-    clock, and the peak memory above what was allocated before it: the
-    model's and earlier phases' tensors), its mAP and descriptor width;
+    ``compare`` (the descriptors at 1e-4); the zoo fixture
+    (``ZOO_CLASSES``) through ``serving_slice``, after a warm-up on its
+    first 8 images (every bucket shape): img/s on the host clock, the
+    peak memory above what was allocated before it (the model's and
+    earlier phases' tensors), its mAP and descriptor width;
     and each kernel's launches over that run against the backbone passes
     it made
     (a forward hook on ``backbone``, on CLIP's ``visual`` tower, or on
@@ -1990,8 +2008,10 @@ def full_width_model(torch, gh, rb, smi: str, label: str, name: str,
                 if hasattr(gpu_model, a))
     hook = stem.register_forward_hook(
         lambda *a: passes.__setitem__(0, passes[0] + 1))
-    serving_slice(gpu_model, imgs, labels, SCALES, bucket=128, k=100,
-                  device="cuda", extent_multiple=multiple)  # warm: plans
+    # warm: cuDNN's plans; the first 8 images hold every bucket shape,
+    # and a tail batch pads to the same batch size
+    serving_slice(gpu_model, imgs[:8], labels[:8], SCALES, bucket=128,
+                  k=8, device="cuda", extent_multiple=multiple)
     passes[0] = 0
     _reset_launches(gh, rb)
     torch.cuda.synchronize()
@@ -2026,6 +2046,11 @@ def full_width_model(torch, gh, rb, smi: str, label: str, name: str,
         gpu_model
 
 
+# the zoo phases' fixture: 8 classes x 8 renders at 1024 px, half of
+# phase 4's, so that phases 9-13 keep the script inside its time limit
+ZOO_CLASSES = 8
+
+
 def _zoo_inputs():
     """(fixture images, labels, the two normalized CUDA-vs-CPU images)."""
     from research_image_retrieval_tpu_torch.data import (
@@ -2033,7 +2058,7 @@ def _zoo_inputs():
         IMAGENET_STD,
     )
 
-    imgs, labels = serving_fixture(16, 1024)
+    imgs, labels = serving_fixture(ZOO_CLASSES, 1024)
     few = [((im.astype(np.float32) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD)
            for im in procedural_images([(512, 683), (384, 512)], seed=5)]
     return imgs, labels, few
@@ -2194,7 +2219,7 @@ def _recorded(module, name: str, calls: list):
 
 def phase_local_rerank(torch, gh, rb, smi: str, model) -> dict:
     """Phase 9.2: ``cli.evaluate --model delg_r50 --local-rerank`` (ms3)
-    on the phase-4 fixture as JPEG files laid out as a Revisited dataset
+    on the zoo fixture as JPEG files laid out as a Revisited dataset
     (as 6.7), the seeded delg_r50 of 9.1 as a ``.pt`` checkpoint.  Its
     ranks must equal the direct pipeline's (``_local_rerank_ranks`` on
     the same model, given the CLI run's descriptors, ranks and loaders),
@@ -2221,7 +2246,7 @@ def phase_local_rerank(torch, gh, rb, smi: str, model) -> dict:
     shutil.rmtree(work, ignore_errors=True)
     jdir = os.path.join(work, "fixture")
     os.makedirs(jdir)
-    imgs, labels = serving_fixture(16, 1024)
+    imgs, labels = serving_fixture(ZOO_CLASSES, 1024)
     names = [f"{i:03d}.jpg" for i in range(len(imgs))]
     for name, img in zip(names, imgs):
         with open(os.path.join(jdir, name), "wb") as f:
@@ -2434,7 +2459,7 @@ def _chunk_ms(torch, model, q, g, iters: int = 5) -> float:
 def phase_cvnet_rerank(torch, gh, rb, smi: str) -> dict:
     """Phase 11.2: ``cli.evaluate --model gem_r50 --multiscale
     --cvnet-rerank --rerank-k 20`` (default ``--rerank-imsize`` 224) on
-    the phase-4 fixture as JPEG files laid out as a Revisited dataset
+    the zoo fixture as JPEG files laid out as a Revisited dataset
     (as 9.2), a seeded gem_r50 (8 classes) and a seeded
     ``CVNetRerank(resnet50, reduction_dim=256)`` given as ``.pt`` files.
     Its ranks must equal the direct ``_cvnet_rerank_ranks`` on the CLI
@@ -2469,7 +2494,7 @@ def phase_cvnet_rerank(torch, gh, rb, smi: str) -> dict:
     shutil.rmtree(work, ignore_errors=True)
     jdir = os.path.join(work, "fixture")
     os.makedirs(jdir)
-    imgs, labels = serving_fixture(16, 1024)
+    imgs, labels = serving_fixture(ZOO_CLASSES, 1024)
     names = [f"{i:03d}.jpg" for i in range(len(imgs))]
     for name, img in zip(names, imgs):
         with open(os.path.join(jdir, name), "wb") as f:
@@ -2795,7 +2820,7 @@ def phase_transformers(torch, gh, rb, smi: str):
 
 
 def _fixture_as_revisited(work: str):
-    """The phase-4 fixture as JPEG files laid out as a Revisited dataset
+    """The zoo fixture as JPEG files laid out as a Revisited dataset
     under ``work`` (as 9.2 and 11.2): (data root, images, query ids)."""
     enc = _jpeg_encoder()
     if enc is None:
@@ -2804,7 +2829,7 @@ def _fixture_as_revisited(work: str):
     shutil.rmtree(work, ignore_errors=True)
     jdir = os.path.join(work, "fixture")
     os.makedirs(jdir)
-    imgs, labels = serving_fixture(16, 1024)
+    imgs, labels = serving_fixture(ZOO_CLASSES, 1024)
     names = [f"{i:03d}.jpg" for i in range(len(imgs))]
     for name, img in zip(names, imgs):
         with open(os.path.join(jdir, name), "wb") as f:
@@ -3145,17 +3170,19 @@ def phase_prototype_train(torch, smi: str) -> None:
         torch.cuda.empty_cache()
 
 
-# token_r101 and spca_r101 are not here: in float64 their card-vs-CPU
-# deviations sit above ``device_check.BARS`` for reasons of their own
-# (ROADMAP Queue 1 item 12)
-ZOO_STEPS = (("ultron_s", ("adamw", "sgd")),)
+# token_r101 under its own rules (``device_check.RULES``: a zero running
+# mean at the zero-leaf bar, grad_norm against the CPU's measured floor);
+# spca_r101 under BARS, its distance masks in the model's dtype
+ZOO_STEPS = (("ultron_s", ("adamw", "sgd")), ("token_r101", ("sgd",)),
+             ("spca_r101", ("sgd",)))
 
 
 def phase_zoo_train(torch, smi: str) -> None:
-    """Phase 13.3: ultron_s's train steps on the card against the CPU
+    """Phase 13.3: the zoo's train steps on the card against the CPU
     (``check_cuda_train_step``, float64, after the float32 TF32 check):
-    an AdamW step, then an SGD step after the hand-off, as
-    ``adamw_then_sgd`` does."""
+    ultron_s's AdamW step, then an SGD step after the hand-off, as
+    ``adamw_then_sgd`` does; one SGD step each of token_r101 and
+    spca_r101."""
     from research_image_retrieval_tpu_torch.train.device_check import (
         SHAPE,
         check_cuda_train_step,
@@ -3411,6 +3438,299 @@ def phase_sharded_serving(torch, smi: str) -> None:
     print(f"serving 14.3: {time.perf_counter() - t0:.1f} s")
 
 
+# -- phase 15: the split JPEG decode ----------------------------------------
+
+DCT_K = 4  # coefficients per block side shipped by the host
+
+
+def _dct_plan(items, kw, batch: int) -> int:
+    """The dispatches ``extract_vectors(dct_decode=True)`` makes over
+    ``items`` with ``kw``: per bucket key (``_DctAccumStream``'s, the RGB
+    items' included), its items in batches of ``batch``."""
+    import torch
+
+    from research_image_retrieval_tpu_torch.index import extract as ex
+
+    stream = ex._DctAccumStream(
+        None, kw["bucket"], batch, kw["scales"], torch.device("cpu"),
+        input_norm=kw["input_norm"], extent_multiple=kw["extent_multiple"])
+    keys = collections.Counter(stream._key_and_task(i, item)[0]
+                               for i, item in enumerate(items))
+    return sum(-(-n // batch) for n in keys.values())
+
+
+def phase_dct_decode(torch, gh, rb, smi: str, classes: int = 16,
+                     imsize: int = 1024) -> dict:
+    """Phase 15: the split JPEG decode (the host entropy-decodes with the
+    port's own decoder, ``csrc/jpeg_coeffs.cc``, built here by g++ with no
+    libjpeg; the card dequantizes, inverse-transforms, upsamples and
+    converts) through ``cli.evaluate --model gem_r50 --multiscale
+    --dct-decode 4`` at full width and depth (``seeded_init(seed=0)``,
+    1024 px) on the phase-4 fixture's JPEGs laid out as a Revisited
+    dataset, plus a progressive JPEG and a 2,100 px source (DCT-domain
+    prescale to ``out_block`` 4) in the gallery.  The boxed queries take
+    the RGB path, every gallery file the coefficient path.
+
+    Checks: the card's k = 8 decode of two files (one baseline, the
+    progressive one) within JAX's bars of OpenCV's full decode (max < 6
+    inside the whole MCUs, printed with the edge MCUs too, where
+    libjpeg's upsampling replicates the last valid chroma sample and
+    the device decode, as JAX's, reads the encoder's padding; mean < 1
+    on 0..255); the card's device decode equal to the CPU's
+    (1e-3); every gallery item on the coefficient path; the kernels'
+    launches equal to the bucket plan's (12 bottleneck and 1 head per
+    backbone pass, 3 passes per batch); two descriptors (a fixture file
+    and the 2,100 px one) within 1e-4 of the port's CPU DCT path; the
+    CLI's mAP equal to the card descriptors' ranked on the CPU.  Prints
+    the host decode ms per image, the wire bytes per image against the
+    RGB thumbnail's, each descriptor's cosine to the RGB path's (raw and
+    with the fixture's mean descriptor subtracted; JAX's bar 0.997) and
+    the gallery's img/s on both paths (host clock, warm)."""
+    import inspect
+
+    import cv2
+
+    from research_image_retrieval_tpu_torch.cli import evaluate as cli_eval
+    from research_image_retrieval_tpu_torch.data import (
+        ImageFromList,
+        PrefetchedImages,
+    )
+    from research_image_retrieval_tpu_torch.data import native_decode as nd
+    from research_image_retrieval_tpu_torch.evaluation import (
+        compute_map_and_print,
+    )
+    from research_image_retrieval_tpu_torch.evaluation import driver
+    from research_image_retrieval_tpu_torch.index import (
+        extract_vectors,
+        rank_full,
+    )
+    from research_image_retrieval_tpu_torch.models import (
+        get_model,
+        seeded_init,
+    )
+    from research_image_retrieval_tpu_torch.ops.jpeg_decode import (
+        dct_decode_rgb,
+    )
+
+    t_phase = time.perf_counter()
+    if not nd.coeffs_available():
+        raise AssertionError("15: the coefficient decoder "
+                             "(csrc/jpeg_coeffs.cc) did not build with g++")
+    build_s = time.perf_counter() - t_phase
+    work = os.path.join(ROOT, "build", "chip_smoke_dct")
+    shutil.rmtree(work, ignore_errors=True)
+    jdir = os.path.join(work, "fixture")
+    os.makedirs(jdir)
+    imgs, labels = serving_fixture(classes, imsize)
+    nf = len(imgs)  # p003 and b002 follow
+    bgr = lambda im: cv2.cvtColor(im, cv2.COLOR_RGB2BGR)  # noqa: E731
+    files = {f"{i:03d}.jpg": cv2.imencode(
+        ".jpg", bgr(im), [cv2.IMWRITE_JPEG_QUALITY, 95])[1].tobytes()
+        for i, im in enumerate(imgs)}
+    # a progressive copy of image 3 and a 2,100 px upscale of image 2
+    files["p003.jpg"] = cv2.imencode(
+        ".jpg", bgr(imgs[3]), [cv2.IMWRITE_JPEG_QUALITY, 95,
+                               cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1].tobytes()
+    h, w = imgs[2].shape[:2]
+    side = 2100 * imsize // 1024  # out_block 4 at imsize
+    big = cv2.resize(imgs[2], (side, round(h * side / w)),
+                     interpolation=cv2.INTER_CUBIC)
+    files["b002.jpg"] = cv2.imencode(
+        ".jpg", bgr(big), [cv2.IMWRITE_JPEG_QUALITY, 95])[1].tobytes()
+    names = list(files)
+    for n in names:
+        with open(os.path.join(jdir, n), "wb") as f:
+            f.write(files[n])
+    imgs = imgs + [imgs[3], big]
+    labels = np.asarray(list(labels) + [labels[3], labels[2]])
+    q_idx = np.arange(0, nf, 8)
+    root = os.path.join(work, "revisited")
+    gnd = _revisited_layout(root, jdir, names, imgs, labels, q_idx)
+
+    # -- the host half: k = 8 on the card against OpenCV's full decode ---
+    host = []
+    for n in ("001.jpg", "p003.jpg"):
+        co = nd.decode_jpeg_coeffs(files[n], k=8)
+        t = [torch.from_numpy(a[None]).cuda() for a in
+             (co.coef_y, co.coef_c, co.quant_y, co.quant_c)]
+        dec = dct_decode_rgb(*t, co.subsamp, 8)[0, :co.h, :co.w].cpu()
+        ref = torch.from_numpy(cv2.cvtColor(cv2.imdecode(
+            np.frombuffer(files[n], np.uint8), cv2.IMREAD_COLOR),
+            cv2.COLOR_BGR2RGB).astype(np.float32))
+        d = (dec - ref).abs()
+        # the last partial MCU row / column: libjpeg's fancy upsampling
+        # replicates the last valid chroma sample, the device decode (as
+        # JAX's) reads the encoder's padding there
+        m = 16 if co.subsamp == 2 else 8
+        inner = d[:co.h // m * m, :co.w // m * m]
+        host.append((n, float(inner.max()), float(d.mean()), float(d.max())))
+        if not (inner.max() < 6.0 and d.mean() < 1.0):
+            raise AssertionError(f"15 {n}: k=8 card decode vs OpenCV max "
+                                 f"{float(inner.max()):.3f} inside the "
+                                 f"whole MCUs, mean {float(d.mean()):.4f} "
+                                 "(bars 6, 1)")
+    gal = [os.path.join(root, "roxford5k", "jpg", n) for n in names]
+    t0 = time.perf_counter()
+    coeffs = [nd.decode_jpeg_coeffs(files[n], k=DCT_K) for n in names]
+    decode_ms = (time.perf_counter() - t0) * 1e3 / len(names)
+    loader = ImageFromList(gal, imsize=imsize, raw_uint8=True,
+                           dct_coeffs=DCT_K)
+    items = [loader[i] for i in range(len(gal))]
+    wire = sum(it.nbytes + it.quant_y.nbytes + it.quant_c.nbytes
+               for it in items) / len(items)
+    rgb_bytes = sum(3 * it.target_hw[0] * it.target_hw[1]
+                    for it in items) / len(items)
+    if any(c is None for c in coeffs):
+        raise AssertionError("15: the decoder refused a fixture file")
+
+    # -- the device half: the card's decode against the CPU's ------------
+    dev_err = 0.0
+    for idx, name in ((1, "001.jpg"), (nf + 1, "b002.jpg")):
+        it = items[idx]
+        arrays = [torch.from_numpy(a[None]) for a in
+                  (it.coef_y, it.coef_c, it.quant_y, it.quant_c)]
+        cpu = dct_decode_rgb(*arrays, it.subsamp, it.out_block)
+        card = dct_decode_rgb(*(a.cuda() for a in arrays), it.subsamp,
+                              it.out_block).cpu()
+        dev_err = max(dev_err, check_close(f"15 device decode {name}", card,
+                                           cpu, 0.0, 1e-3))
+    if items[nf + 1].out_block != 4 or items[nf].k != DCT_K:
+        raise AssertionError(f"15: b002 out_block {items[nf + 1].out_block}, "
+                             "want 4")
+
+    # -- the slice: cli.evaluate --dct-decode 4 --------------------------
+    ckpt = os.path.join(work, "gem_r50_seed0.pt")
+    gem = get_model("gem_r50", num_classes=8)
+    seeded_init(gem, seed=0)
+    torch.save(gem.state_dict(), ckpt)
+    out = os.path.join(work, "dct.json")
+    calls = []
+    real = driver.extract_vectors
+
+    def recorded(fn, images, **kw):
+        seen = []
+
+        def feed():
+            for img in images:
+                seen.append(img)
+                yield img
+        vecs = real(fn, feed(), **kw)
+        calls.append((seen, kw, vecs))
+        return vecs
+
+    driver.extract_vectors = recorded
+    _reset_launches(gh, rb)
+    t0 = time.perf_counter()
+    try:
+        cli_eval.main(["--model", "gem_r50", "--datasets", "roxford5k",
+                       "--data-root", root, "--checkpoint", ckpt,
+                       "--multiscale", "--dct-decode", str(DCT_K),
+                       "--imsize", str(imsize), "--output", out])
+    finally:
+        driver.extract_vectors = real
+    cli_s = time.perf_counter() - t0
+    launches = {"gem_head": gh.gem_whiten_l2.launches,
+                "bottleneck": rb.fused_bottleneck.launches}
+    with open(out) as f:
+        got_map = tuple(json.load(f)["roxford5k"])
+    (g_items, kw, vecs), (q_items, _, qvecs) = calls
+    paths = {"coefficients": sum(isinstance(i, nd.JpegCoeffs)
+                                 for i in g_items + q_items)}
+    paths["rgb"] = len(g_items) + len(q_items) - paths["coefficients"]
+    if not all(isinstance(i, nd.JpegCoeffs) for i in g_items) or \
+            any(isinstance(i, nd.JpegCoeffs) for i in q_items) or \
+            g_items[nf].k != DCT_K or g_items[nf + 1].out_block != 4:
+        raise AssertionError(f"15 routes: {paths}; every gallery file "
+                             "(p003, b002 included) must take the "
+                             "coefficient path, every boxed query RGB")
+    batch = inspect.signature(real).parameters["batch_size"].default
+    n_batches = _dct_plan(g_items, kw, batch) + _dct_plan(q_items, kw, batch)
+    n_pass = len(kw["scales"]) * n_batches
+    want = {"gem_head": n_pass, "bottleneck": 12 * n_pass}
+    if launches != want:
+        raise AssertionError(f"15 launches {launches}, the bucket plan's "
+                             f"{want} ({n_batches} batches)")
+
+    # -- descriptors and mAP against the CPU ------------------------------
+    cpu_model = copy.deepcopy(gem).eval()
+    ck = dict(kw, device="cpu", batch_size=1)  # the two differ in bucket
+    t0 = time.perf_counter()
+    cpu_vecs = extract_vectors(lambda x, v: cpu_model.extract(x, v),
+                               [g_items[1], g_items[nf + 1]], **ck)
+    cpu_s = time.perf_counter() - t0
+    err = check_close("15 descriptors card vs cpu",
+                      torch.from_numpy(vecs[[1, nf + 1]]),
+                      torch.from_numpy(cpu_vecs), 0.0, 1e-4)
+    # the CLI ranked on the card; the same descriptors ranked on the CPU
+    # give the same ids wherever the scores are distinct, and its mAP
+    card_ranks = rank_full(qvecs, vecs, device="cuda")
+    cpu_ranks = rank_full(qvecs, vecs, device="cpu")
+    scores = np.take_along_axis(qvecs.astype(np.float64) @ vecs.T.astype(
+        np.float64), card_ranks.T, axis=1)
+    n_distinct = _same_ids("15 ranks card vs cpu", cpu_ranks.T, card_ranks.T,
+                           scores)
+    cpu_map = compute_map_and_print("roxford5k", "global", "test",
+                                    cpu_ranks, gnd, kappas=[1, 5, 10])
+    if vecs.shape != (len(names), 2048) or (
+            np.array_equal(cpu_ranks, card_ranks)
+            and tuple(cpu_map) != got_map):
+        raise AssertionError(f"15 mAP {got_map} vs the CPU's ranks "
+                             f"{tuple(cpu_map)}; vecs {vecs.shape}")
+
+    # -- the RGB path beside it: cosines and img/s (warm) ----------------
+    model = gem.cuda().eval()
+    fn = lambda x, v: model.extract(x, v)  # noqa: E731
+
+    def timed(dct: bool):
+        lo = PrefetchedImages(ImageFromList(
+            gal, imsize=imsize, raw_uint8=True,
+            dct_coeffs=DCT_K if dct else 0))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        v = extract_vectors(fn, lo, **dict(kw, device="cuda",
+                                           dct_decode=dct))
+        return v, len(gal) / (time.perf_counter() - t)
+
+    rgb_vecs, _ = timed(False)
+    _, rgb_rate = timed(False)
+    dct_vecs, dct_rate = timed(True)
+    cos = np.sum(dct_vecs * rgb_vecs, axis=1)
+    mean = rgb_vecs.mean(axis=0)
+    a, b = dct_vecs - mean, rgb_vecs - mean
+    ccos = np.sum(a * b, axis=1) / (np.linalg.norm(a, axis=1)
+                                    * np.linalg.norm(b, axis=1))
+    del model, cpu_model, gem
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"dct 15: decoder build {build_s:.1f} s (g++, no libjpeg); host "
+          f"half k=8 card decode vs OpenCV (max inside the whole MCUs / "
+          f"mean on 0..255, bars 6 / 1; max with the partial edge MCUs): "
+          + ", ".join(f"{n} {m:.3f} / {e:.4f}; {w:.3f}"
+                      for n, m, e, w in host)
+          + f"; host entropy decode {decode_ms:.2f} ms per image (one "
+          f"thread, {len(names)} files, k={DCT_K}); wire "
+          f"{wire / 1e6:.3f} MB per image against {rgb_bytes / 1e6:.3f} MB "
+          f"RGB uint8 ({rgb_bytes / wire:.2f}x fewer); device decode card "
+          f"vs cpu max|err| {dev_err:.2e} (atol 1e-3) [{smi}]")
+    print(f"dct 15: cli.evaluate --model gem_r50 --multiscale --dct-decode "
+          f"{DCT_K} ({len(names)} gallery files, {len(q_idx)} boxed "
+          f"queries, {imsize} px) in {cli_s:.1f} s: items per path {paths} "
+          f"(p003 progressive and b002 2100 px, out_block "
+          f"{g_items[nf + 1].out_block}, on coefficients); launches {launches}"
+          f" == the bucket plan's ({n_batches} batches x 3 scales x 12 / "
+          f"1); descriptors card vs cpu (001, b002) max|err| {err:.3e} "
+          f"(atol 1e-4, cpu {cpu_s:.1f} s); mAP E/M/H {got_map}, on the "
+          f"CPU's ranks {tuple(cpu_map)} (ids equal on {n_distinct} "
+          f"distinct scores); cosine to the RGB path min {cos.min():.5f} mean "
+          f"{cos.mean():.5f} (JAX's bar 0.997; the fixture's descriptors "
+          f"are nearly collinear), mean-subtracted min {ccos.min():.4f} "
+          f"mean {ccos.mean():.4f}; gallery img/s (host clock, warm) "
+          f"{dct_rate:.2f} split decode vs {rgb_rate:.2f} RGB "
+          f"({time.perf_counter() - t_phase:.1f} s) [{smi}]")
+    return {"launches": launches, "img_s": dct_rate, "rgb_img_s": rgb_rate,
+            "decode_ms": decode_ms, "wire": wire, "rgb_bytes": rgb_bytes}
+
+
 def main() -> int:
     # cuBLAS reads this when the process makes its first handle; 7.2's
     # deterministic_mode() needs it (utils/profiling.py)
@@ -3609,6 +3929,11 @@ def main() -> int:
     phase_sharded_serving(torch, smi)
     print(f"multi-GPU phase 14: {time.perf_counter() - t0:.1f} s [{smi}]")
 
+    # -- 15: the split JPEG decode through cli.evaluate --dct-decode ------
+    t0 = time.perf_counter()
+    dct_run = phase_dct_decode(torch, gh, rb, smi)
+    print(f"split-decode phase 15: {time.perf_counter() - t0:.1f} s [{smi}]")
+
     src = "research_image_retrieval_tpu_torch/csrc/"
     replaces = {
         "gem_head": "research_image_retrieval_tpu/ops/gem_pallas.py:84",
@@ -3645,7 +3970,10 @@ def main() -> int:
                     dist_launches={
                         "14.2 rank-sharded extraction, per rank":
                             [r[name] for r in dist_run["ranks"]],
-                        "14.2 single process": dist_run["single"][name]})
+                        "14.2 single process": dist_run["single"][name]},
+                    dct_launches={
+                        "15 cli.evaluate --dct-decode 4":
+                            dct_run["launches"][name]})
                for name in ("gem_head", "bottleneck")]
     # the bf16 forms: their main path is a bf16 model's (7.3-bf16), its
     # extraction counted as ``launches``, its validation beside it

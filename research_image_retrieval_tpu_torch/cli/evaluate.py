@@ -1,10 +1,11 @@
 """Evaluation CLI: extract + rank + Revisited protocol mAP
 (port of ``research_image_retrieval_tpu/cli/evaluate.py`` with the flags
 of what the port has: multiscale, host scales, alpha-QE, PCA whitening,
-the learned IQE, SuperGlobal, CVNet's correlation reranking and DELG's
-local-feature geometric reranking; the split DCT decode is not ported
-yet).  ``--iqe-checkpoint`` and ``--rerank-checkpoint`` read a ``.pt``
-state dict or an ``.npz`` of flattened flax variables, not orbax.
+the learned IQE, SuperGlobal, CVNet's correlation reranking, DELG's
+local-feature geometric reranking and the split JPEG decode,
+``--dct-decode K``).  ``--iqe-checkpoint`` and ``--rerank-checkpoint``
+read a ``.pt`` state dict or an ``.npz`` of flattened flax variables,
+not orbax.
 ``--model`` takes any registry or Table-1 name (``gem_r50``,
 ``dolg_r101``, ``R101-SOLAR``, ``delg_r50``, ``R101-Token`` ...);
 ``--local-rerank`` needs a delg model.
@@ -23,6 +24,17 @@ fixture and says so.
     python -m research_image_retrieval_tpu_torch.cli.evaluate \
         --model gem_r50 --datasets roxford5k --data-root /data/revisited \
         --multiscale --cvnet-rerank --rerank-checkpoint cvnet.pt
+
+    python -m research_image_retrieval_tpu_torch.cli.evaluate \
+        --model gem_r50 --datasets roxford5k --data-root /data/revisited \
+        --multiscale --dct-decode 4
+
+``--dct-decode K`` entropy-decodes each gallery JPEG on the host to its
+top-left K x K quantized DCT coefficients (the port's own decoder,
+``csrc/jpeg_coeffs.cc``, built with g++ at first use; no libjpeg) and
+finishes the decode on the device: (K*K/64) * 3 of the RGB-uint8 bytes
+cross to the device, 4x fewer at K = 4.  Boxed queries, non-JPEG files
+and files the decoder refuses take the RGB path.
 """
 
 from __future__ import annotations
@@ -39,6 +51,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--imsize", type=int, default=1024)
     p.add_argument("--checkpoint", default=None,
                    help=".pt state dict or .npz of flattened flax variables")
+    p.add_argument("--dct-decode", type=int, default=0, metavar="K",
+                   help="split JPEG decode: the host entropy-decodes to "
+                        "K x K DCT coefficients per block, the device "
+                        "finishes the decode (4x fewer wire bytes at K=4)")
     p.add_argument("--host-scales", action="store_true",
                    help="multi-scale resizes on the host instead of the "
                         "device (debug)")
@@ -102,6 +118,7 @@ def main(argv=None):
         checkpoint=args.checkpoint,
         multiscale=(1.0, 2**-0.5, 0.5) if args.multiscale else (1.0,),
         device_scales=not args.host_scales,
+        dct_decode=args.dct_decode,
         alpha_qe=args.alpha_qe,
         qe_k=args.qe_k,
         qe_alpha=args.qe_alpha,

@@ -1,10 +1,11 @@
 """Evaluation image loader: path lists with query bbox crops
-(port of ``research_image_retrieval_tpu/data/eval_loader.py``; the split
-DCT decode, ``dct_coeffs``, is not ported yet).
+(port of ``research_image_retrieval_tpu/data/eval_loader.py``).
 
 Loads each path, optionally crops the query bounding box, thumbnails so
 the max side == imsize, and yields variable-resolution single images for
-the bucketed extractor (``index.extract_vectors``).
+the bucketed extractor (``index.extract_vectors``); with ``dct_coeffs``
+a JPEG item is instead the host half of the split decode
+(``data.native_decode.JpegCoeffs``).
 """
 
 from __future__ import annotations
@@ -13,7 +14,10 @@ from typing import Sequence
 
 import numpy as np
 
-from research_image_retrieval_tpu_torch.data.native_decode import decode_image
+from research_image_retrieval_tpu_torch.data.native_decode import (
+    decode_image,
+    decode_jpeg_coeffs,
+)
 from research_image_retrieval_tpu_torch.data.transforms import (
     IMAGENET_MEAN,
     IMAGENET_STD,
@@ -50,16 +54,27 @@ class ImageFromList:
         smallest 1/2^k scale still >= ``imsize`` before the exact
         thumbnail (images with a bbox decode at full resolution).  Not
         the strict-parity decode path.
+      dct_coeffs: k > 0 makes a JPEG item the split decode's host half,
+        ``JpegCoeffs`` (the top-left k x k quantized coefficients of each
+        block), for ``extract_vectors(dct_decode=True)``, which finishes
+        the decode on the device.  A source larger than ``imsize``
+        prescales in the DCT domain (``out_block`` < 8, libjpeg's
+        ``scale_denom`` choice).  Items with a bbox, non-JPEG files and
+        files the coefficient decoder refuses are raw uint8 arrays
+        (``rgb_item``).  Requires ``raw_uint8``.
     """
 
     def __init__(self, paths: Sequence[str], imsize: int | None = None,
                  bbxs: Sequence | None = None, normalize_input: bool = True,
                  bgr: bool = False, raw_uint8: bool = False,
-                 fast_decode: bool = False):
+                 fast_decode: bool = False, dct_coeffs: int = 0):
         if raw_uint8 and bgr:
             raise ValueError(
                 "raw_uint8 stages normalization on-device with RGB stats; "
                 "the BGR (Caffe) path needs host normalization")
+        if dct_coeffs and not raw_uint8:
+            raise ValueError("dct_coeffs requires raw_uint8=True "
+                             "(normalization runs on the device)")
         self.paths = list(paths)
         self.imsize = imsize
         self.bbxs = list(bbxs) if bbxs is not None else None
@@ -67,11 +82,48 @@ class ImageFromList:
         self.bgr = bgr
         self.raw_uint8 = raw_uint8
         self.fast_decode = fast_decode
+        self.dct_coeffs = int(dct_coeffs)
 
     def __len__(self):
         return len(self.paths)
 
-    def __getitem__(self, i: int) -> np.ndarray:
+    def _coeffs_item(self, i: int):
+        """The split decode's payload of item ``i``, or None for the RGB
+        path."""
+        path = self.paths[i]
+        if not path.lower().endswith((".jpg", ".jpeg")):
+            return None
+        if self.bbxs is not None and self.bbxs[i] is not None:
+            return None  # crop coordinates are in pixels
+        with open(path, "rb") as f:
+            co = decode_jpeg_coeffs(f.read(), k=self.dct_coeffs)
+        if co is None or not self.imsize:
+            return co
+        # DCT-domain prescale: the smallest 1/2^p whose max side is still
+        # >= imsize (libjpeg's scale_denom choice)
+        full = max(co.h, co.w)
+        n = 8
+        while n > 1 and full * (n // 2) // 8 >= self.imsize:
+            n //= 2
+        co.out_block = n
+        if full != self.imsize:
+            s = self.imsize / full
+            co.target_hw = (max(int(round(co.h * s)), 1),
+                            max(int(round(co.w * s)), 1))
+        else:
+            co.target_hw = co.decoded_hw
+        return co
+
+    def __getitem__(self, i: int):
+        if self.dct_coeffs:
+            co = self._coeffs_item(i)
+            if co is not None:
+                return co
+        return self.rgb_item(i)
+
+    def rgb_item(self, i: int) -> np.ndarray:
+        """Item ``i`` as pixels whatever ``dct_coeffs`` says (the rerank
+        paths load their shortlists as pixels)."""
         has_bbx = self.bbxs is not None and self.bbxs[i] is not None
         prescale = (self.imsize
                     if (self.fast_decode and self.imsize and not has_bbx)
@@ -112,6 +164,11 @@ class PrefetchedImages:
 
     def __getitem__(self, i: int):
         return self.dataset[i]
+
+    def rgb_item(self, i: int):
+        """Item ``i`` as pixels whatever the dataset's payload."""
+        fn = getattr(self.dataset, "rgb_item", None)
+        return self.dataset[i] if fn is None else fn(i)
 
     def __iter__(self):
         from concurrent.futures import ThreadPoolExecutor

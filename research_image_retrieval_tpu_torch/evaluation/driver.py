@@ -280,12 +280,14 @@ def _rank(qvecs, vecs, cfg: EvalConfig, device) -> np.ndarray:
 
 
 def _square_images(loader, idxs, size: int) -> np.ndarray:
-    """[len(idxs), size, size, 3] float32 batch of the loader's items,
-    bilinear-resized; a raw uint8 item is normalized first, as the
-    loader's float items are."""
+    """[len(idxs), size, size, 3] float32 batch of the loader's items as
+    pixels (``rgb_item`` where the loader has it: a split-decode loader
+    yields coefficients), bilinear-resized; a raw uint8 item is
+    normalized first, as the loader's float items are."""
     out = np.empty((len(idxs), size, size, 3), np.float32)
+    pixels = getattr(loader, "rgb_item", loader.__getitem__)
     for j, i in enumerate(idxs):
-        img = np.asarray(loader[int(i)])
+        img = np.asarray(pixels(int(i)))
         if img.dtype == np.uint8:
             img = normalize(img.astype(np.float32) / 255.0, IMAGENET_MEAN,
                             IMAGENET_STD)
@@ -422,17 +424,23 @@ def evaluate(cfg: EvalConfig, device="cuda") -> dict:
                 continue
             ds = RevisitedDataset(dataset, cfg.data_root)
             # device_scales: raw uint8 to the device, normalization and
-            # scale resizes there
-            dsc = cfg.device_scales
+            # scale resizes there; dct_decode: the split JPEG decode (host
+            # entropy decode, the rest on the device) where device_scales
+            # holds, the boxed queries taking the RGB path item by item
+            dsc = cfg.device_scales and bucket is not None
             norm = (IMAGENET_MEAN, IMAGENET_STD) if dsc else None
+            dct_k = int(cfg.dct_decode) if dsc else 0
             db_loader = PrefetchedImages(ImageFromList(
-                ds.im_fnames, imsize=cfg.imsize, raw_uint8=dsc))
+                ds.im_fnames, imsize=cfg.imsize, raw_uint8=dsc,
+                dct_coeffs=dct_k))
             q_loader = PrefetchedImages(ImageFromList(
                 ds.qim_fnames, imsize=cfg.imsize,
-                bbxs=[ds.query_bbx(i) for i in range(ds.nq)], raw_uint8=dsc))
+                bbxs=[ds.query_bbx(i) for i in range(ds.nq)], raw_uint8=dsc,
+                dct_coeffs=dct_k))
             kw = dict(scales=cfg.multiscale, print_freq=100, bucket=bucket,
                       device_scales=dsc, input_norm=norm,
-                      extent_multiple=multiple, device=dev)
+                      extent_multiple=multiple, device=dev,
+                      dct_decode=dct_k > 0)
             vecs = extract_vectors(extract, db_loader, **kw)
             qvecs = extract_vectors(extract, q_loader, **kw)
             if cfg.pca_whiten:

@@ -24,7 +24,9 @@ on a side stream; ``pipeline_depth`` pinned slots bound how far the host
 runs ahead of the device.  With a ``parallel.mesh.Mesh`` (indexing
 under ``torchrun``) the images are strided over the data ranks, each
 rank runs its own buckets, and the descriptors are gathered in input
-order.
+order.  With ``dct_decode`` JPEG items arrive as the split decode's
+quantized DCT coefficients (``data.native_decode.JpegCoeffs``) and are
+decoded on the device inside their buckets (``_DctAccumStream``).
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ from typing import Callable, Iterable, Sequence
 import numpy as np
 import torch
 
+from research_image_retrieval_tpu_torch.data.native_decode import JpegCoeffs
+from research_image_retrieval_tpu_torch.ops.jpeg_decode import dct_decode_rgb
 from research_image_retrieval_tpu_torch.ops.norm import (
     fused_input_norm,
     l2_normalize,
@@ -54,6 +58,7 @@ _MIN_SIDE = 36
 _UPSCALE_TARGET = 64
 _TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
                  np.dtype(np.uint8): torch.uint8,
+                 np.dtype(np.int16): torch.int16,
                  np.dtype(np.int32): torch.int32}
 
 
@@ -444,9 +449,13 @@ class _DeviceScaleAccumStream(_AccumStream):
         return pads, [s == 1.0 and mult == 1 for s in self.scales]
 
     def _run(self, key: tuple, batch: torch.Tensor, meta: torch.Tensor):
-        x0 = self.prep(batch)
+        self._extract_scales(self.prep(batch), meta, *self._pads(key))
+
+    def _extract_scales(self, x0: torch.Tensor, meta: torch.Tensor, pads,
+                        direct) -> None:
+        """Resize the normalized batch to every scale's extents (into its
+        static pad), extract and accumulate."""
         vh, vw, owner = meta[:, 0], meta[:, 1], meta[:, 2]
-        pads, direct = self._pads(key)
         for si in range(len(self.scales)):
             oh = meta[:, 3 + 3 * si]
             ow = meta[:, 4 + 3 * si]
@@ -461,6 +470,107 @@ class _DeviceScaleAccumStream(_AccumStream):
                                     torch.where(ok, ow, owp)], dim=1)
                 vecs = self.extract_fn(xs, feed)
             self._accumulate(torch.where(ok, owner, self.block_cap), vecs)
+
+
+class _DctAccumStream(_DeviceScaleAccumStream):
+    """Bucketed multi-scale extraction fed by entropy-decoded JPEGs.
+
+    The host ships the top-left ``k x k`` quantized DCT coefficients of
+    each block (``data.native_decode.JpegCoeffs``: int16, with fp32
+    dequantization tables) through the pinned staging and the side-stream
+    H2D copy; each batch is then decoded on the device
+    (``ops.jpeg_decode.dct_decode_rgb``), its padding region zeroed (the
+    RGB path's zero-padded canvas), normalized, resized to the thumbnail
+    target times each scale through the dense per-image weights, extracted
+    and accumulated.  Every scale goes through the resize (an identity
+    resize is exact), because the target rarely equals the decoded
+    canvas.  Wire bytes: ``(k*k/64) * 3`` per RGB-uint8 byte.
+
+    RGB arrays in the same stream (non-JPEG files, boxed queries, files
+    the coefficient decoder refuses) take the parent's buckets.  A
+    coefficient bucket's key is ``("dct", canvas h, canvas w, target h,
+    target w, subsamp, k, out_block)``; the bucket quantum rounds up to a
+    multiple of 16, so that the chroma grid of a 4:2:0 canvas stays whole.
+    """
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.bucket = -(-self.bucket // 16) * 16
+
+    def _targets(self, item) -> list[tuple[int, int, int]]:
+        """Per scale ``(out h, out w, ok)`` from the thumbnail target,
+        with the host path's guards."""
+        vh, vw = item.decoded_hw
+        th, tw = item.target_hw or (vh, vw)
+        out = []
+        for s in self.scales:
+            if self.single:
+                nh, nw, ok = th, tw, 1
+                if nh < _MIN_SIDE or nw < _MIN_SIDE:
+                    f = max(_UPSCALE_TARGET / nh, _UPSCALE_TARGET / nw)
+                    nh, nw = int(round(nh * f)), int(round(nw * f))
+            else:
+                nh, nw = int(math.floor(th * s)), int(math.floor(tw * s))
+                ok = int(nh >= _MIN_SIDE and nw >= _MIN_SIDE)
+            if ok and self.multiple > 1:
+                nh, nw = _snap(nh, self.multiple), _snap(nw, self.multiple)
+            out.append((nh, nw, ok) if ok else (th, tw, 0))
+        return out
+
+    def _key_and_task(self, owner: int, img):
+        if not isinstance(img, JpegCoeffs):
+            return super()._key_and_task(owner, img)
+        n = img.out_block
+        targets = self._targets(img)
+        key = ("dct", self._q(img.coef_y.shape[0] * n),
+               self._q(img.coef_y.shape[1] * n),
+               self._q(max(t[0] for t in targets)),
+               self._q(max(t[1] for t in targets)), img.subsamp, img.k, n)
+        return key, (owner, img, None)
+
+    def _dispatch(self, key: tuple, chunk) -> None:
+        if key[0] != "dct":
+            return super()._dispatch(key, chunk)
+        _, cqh, cqw, tqh, tqw, ss, k, n = key
+        pads, _ = self._pads((tqh, tqw, "ms"))  # every scale resizes
+        B, Yb, Xb = self.batch_size, cqh // n, cqw // n
+        f = 2 if ss == 2 else 1
+        cy, cc, qt, meta = self.staging.take([
+            ((B, Yb, Xb, k, k), np.int16),
+            ((B, 2, Yb // f, Xb // f, k, k), np.int16),
+            ((B, 2, k, k), np.float32),
+            ((B, self._meta_width()), np.int32)])
+        cy.fill(0)
+        cc.fill(0)
+        qt.fill(1.0)
+        # padding rows: full-canvas extents, every scale invalid -> trash
+        meta[:] = self.block_cap
+        meta[:, 0] = cqh
+        meta[:, 1] = cqw
+        for si, (ph, pw) in enumerate(pads):
+            meta[:, 3 + 3 * si: 6 + 3 * si] = (ph, pw, 0)
+        for r, (owner, item, _) in enumerate(chunk):
+            yb, xb = item.coef_y.shape[:2]
+            cy[r, :yb, :xb] = item.coef_y
+            cby, cbx = item.coef_c.shape[1:3]
+            cc[r, :, :cby, :cbx] = item.coef_c
+            qt[r, 0] = item.quant_y
+            qt[r, 1] = item.quant_c
+            meta[r, 0:2] = item.decoded_hw
+            meta[r, 2] = owner - self.block_base
+            for si, t in enumerate(self._targets(item)):
+                meta[r, 3 + 3 * si: 6 + 3 * si] = t
+        cy_d, cc_d, qt_d, meta_d = self.staging.put()
+        rgb = dct_decode_rgb(cy_d, cc_d, qt_d[:, 0], qt_d[:, 1], ss, n)
+        # zero the padding region, as the RGB path's canvas is
+        vh, vw = meta_d[:, 0], meta_d[:, 1]
+        dev = rgb.device
+        rows = torch.arange(cqh, device=dev)[None, :, None] < vh[:, None, None]
+        cols = torch.arange(cqw, device=dev)[None, None, :] < vw[:, None, None]
+        rgb = rgb * (rows & cols)[..., None]
+        self._extract_scales(self.prep(rgb), meta_d, pads,
+                             [False] * len(self.scales))
+        self.staging.release()
 
 
 def extract_vectors(
@@ -479,6 +589,7 @@ def extract_vectors(
     extent_multiple: int = 1,
     device="cuda",
     mesh=None,
+    dct_decode: bool = False,
 ) -> np.ndarray:
     """Descriptors of a sequence of variable-resolution images.
 
@@ -516,6 +627,11 @@ def extract_vectors(
         through its own buckets, and every rank gets the descriptors in
         input order (each image is extracted alone, with its own masks,
         so they equal the single-process run's).
+      dct_decode: the split JPEG decode: ``images`` may hold
+        ``data.native_decode.JpegCoeffs`` (``ImageFromList(dct_coeffs=
+        k)``), decoded on the device (``ops.jpeg_decode``) and resized to
+        their ``target_hw`` times each scale, beside raw uint8 arrays
+        (requires ``device_scales`` and ``input_norm``).
 
     Returns:
       [N, D] numpy descriptors in input order.
@@ -527,8 +643,13 @@ def extract_vectors(
             batch_size=batch_size, device_scales=device_scales,
             input_norm=input_norm, block_cap=block_cap, antialias=antialias,
             pipeline_depth=pipeline_depth, extent_multiple=extent_multiple,
-            device=device)
+            device=device, dct_decode=dct_decode)
     dev = resolve_device(device)
+    if dct_decode and (not device_scales or input_norm is None
+                       or bucket is None):
+        raise ValueError("dct_decode requires device_scales=True, input_norm "
+                         "and bucketed mode (decode and normalization run "
+                         "on the device)")
     if input_norm is not None and (not device_scales or bucket is None):
         raise ValueError("input_norm requires device_scales=True and "
                          "bucketed mode (uint8 images are normalized on "
@@ -545,14 +666,16 @@ def extract_vectors(
             bucket = -(-bucket // extent_multiple) * extent_multiple
         multi = not (len(scales) == 1 and scales[0] == 1.0)
         if device_scales and (multi or input_norm is not None):
-            stream = _DeviceScaleAccumStream(
+            cls = _DctAccumStream if dct_decode else _DeviceScaleAccumStream
+            stream = cls(
                 extract_fn, bucket, batch_size, scales, dev,
                 block_cap=block_cap, pipeline_depth=pipeline_depth,
                 input_norm=input_norm, antialias=antialias,
                 extent_multiple=extent_multiple)
 
             def expand(i, img):  # scales resolve on the device; fail fast
-                H, W = img.shape[:2]
+                H, W = (img.target_hw or img.decoded_hw
+                        if isinstance(img, JpegCoeffs) else img.shape[:2])
                 if multi and all(math.floor(H * s) < _MIN_SIDE
                                  or math.floor(W * s) < _MIN_SIDE
                                  for s in scales):
@@ -569,11 +692,13 @@ def extract_vectors(
         in_dtype = stream.in_dtype
         n = 0
         for i, img in enumerate(images):
-            img = np.asarray(img)
-            if in_dtype == np.uint8 and img.dtype != np.uint8:
-                raise ValueError("input_norm expects raw uint8 images (got "
-                                 f"{img.dtype} for image {i})")
-            for owner, task in expand(i, img.astype(in_dtype, copy=False)):
+            if not (dct_decode and isinstance(img, JpegCoeffs)):
+                img = np.asarray(img)
+                if in_dtype == np.uint8 and img.dtype != np.uint8:
+                    raise ValueError("input_norm expects raw uint8 images "
+                                     f"(got {img.dtype} for image {i})")
+                img = img.astype(in_dtype, copy=False)
+            for owner, task in expand(i, img):
                 stream.add(owner, task)
             n = i + 1
             if print_freq and n % print_freq == 0:

@@ -47,6 +47,7 @@ from research_image_retrieval_tpu_torch.ops.norm import (
 )
 from research_image_retrieval_tpu_torch.ops.pooling import gem_pool
 from research_image_retrieval_tpu_torch.ops.resize import dense_resize_weights
+from research_image_retrieval_tpu_torch.utils import collectives
 from research_image_retrieval_tpu_torch.utils.device import fp32_precision
 
 __all__ = ["AdaptiveHybridModel", "QAFF", "contrastive_loss"]
@@ -83,7 +84,11 @@ class QAFF(nn.Module):
 def contrastive_loss(features: torch.Tensor, labels: torch.Tensor,
                      temperature: float = 0.07) -> torch.Tensor:
     """Supervised InfoNCE: each anchor's mean log-softmax (over the other
-    rows) of its same-label rows, averaged over anchors that have one."""
+    rows) of its same-label rows, averaged over anchors that have one;
+    under a multi-GPU layout over the global batch
+    (``utils.collectives.data_gather_grad``)."""
+    features = collectives.data_gather_grad(features)
+    labels = collectives.data_gather(labels)
     f = l2_normalize(at_least_fp32(features))
     sims = f @ f.t() / temperature
     B = features.shape[0]

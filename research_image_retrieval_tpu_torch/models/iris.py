@@ -47,6 +47,7 @@ from research_image_retrieval_tpu_torch.ops.norm import (
     l2_normalize,
 )
 from research_image_retrieval_tpu_torch.ops.pooling import avg_pool_all
+from research_image_retrieval_tpu_torch.utils import collectives
 from research_image_retrieval_tpu_torch.utils.device import fp32_precision
 
 __all__ = ["CASTLE", "IRISModel", "NEXUS", "ORACLE", "causal_gate",
@@ -179,9 +180,12 @@ def iris_loss(logits, features, labels, temperature: float = 0.07,
               classification_weight: float = 1.0,
               retrieval_weight: float = 0.5) -> torch.Tensor:
     """Cross entropy + the contrastive term over the batch's cosine
-    similarities (masked entries enter the sums as exp(0), as in JAX)."""
+    similarities (masked entries enter the sums as exp(0), as in JAX).
+    Under a multi-GPU layout the contrastive term is the global batch's
+    (``utils.collectives.data_gather_grad``)."""
     cls_loss = cross_entropy(logits, labels)
-    f = l2_normalize(at_least_fp32(features))
+    f = l2_normalize(at_least_fp32(collectives.data_gather_grad(features)))
+    labels = collectives.data_gather(labels)
     sim = (f @ f.T) / temperature
     same = labels[:, None] == labels[None, :]
     eye = torch.eye(len(labels), dtype=torch.bool, device=sim.device)

@@ -43,6 +43,7 @@ from research_image_retrieval_tpu_torch.ops.losses import cross_entropy
 from research_image_retrieval_tpu_torch.ops.masking import hw_mask
 from research_image_retrieval_tpu_torch.ops.norm import l2_normalize
 from research_image_retrieval_tpu_torch.ops.pooling import gem_pool
+from research_image_retrieval_tpu_torch.utils import collectives
 from research_image_retrieval_tpu_torch.utils.device import fp32_precision
 
 __all__ = ["AdaptiveSparseEncoder", "LLMKnowledgeDistillation",
@@ -120,8 +121,9 @@ class LLMKnowledgeDistillation(nn.Module):
         text_features = text_features.detach().to(
             torch.promote_types(text_features.dtype, visual_embed.dtype))
         text_embed = self.text_proj(text_features)
-        t = l2_normalize(text_embed)
-        d = l2_normalize(distill_embed)
+        # under a multi-GPU layout: the global batch's pairs
+        t = l2_normalize(collectives.data_gather_grad(text_embed))
+        d = l2_normalize(collectives.data_gather_grad(distill_embed))
         sim = (d @ t.T) / self.temperature
         labels = torch.arange(sim.shape[0], device=sim.device)
         out.update(text_embed=text_embed,

@@ -80,8 +80,10 @@ def _coord_distance(H: int, W: int) -> np.ndarray:
     return sq + inner + sq.T
 
 
-def _affinity(H: int, W: int, device) -> torch.Tensor:
-    d2 = torch.from_numpy(_coord_distance(H, W)).to(device)
+def _affinity(H: int, W: int, device, dtype=torch.float32) -> torch.Tensor:
+    """``exp(-sqrt(|d2|))`` in ``dtype`` (``d2`` holds small integers,
+    exact in float32)."""
+    d2 = torch.from_numpy(_coord_distance(H, W)).to(device, dtype)
     return torch.exp(-torch.sqrt(torch.abs(d2)))
 
 
@@ -93,23 +95,24 @@ def _powers(A: torch.Tensor, multi: int) -> list:
 
 
 @fp32_precision()
-def distance_encoding_masks(H: int, W: int, multi: int, device):
-    """[A^2 .. A^(multi+1)], each [HW, HW] on ``device``, one for the
-    whole batch; A is normalized by column sums (the reference sums over
-    dim 1 of [B, HW, HW]; row sums would give the transpose)."""
-    e = _affinity(H, W, device)
+def distance_encoding_masks(H: int, W: int, multi: int, device,
+                            dtype=torch.float32):
+    """[A^2 .. A^(multi+1)], each [HW, HW] on ``device`` in ``dtype``, one
+    for the whole batch; A is normalized by column sums (the reference
+    sums over dim 1 of [B, HW, HW]; row sums would give the transpose)."""
+    e = _affinity(H, W, device, dtype)
     return _powers(e / e.sum(dim=0, keepdim=True), multi)
 
 
 @fp32_precision()
 def masked_distance_encoding_masks(H: int, W: int, multi: int,
-                                   tmask: torch.Tensor):
+                                   tmask: torch.Tensor, dtype=torch.float32):
     """Per-image powers over the valid tokens of ``tmask`` [B, HW]: pad
     rows and columns are zeroed before the column normalization, so the
     valid block equals ``distance_encoding_masks`` of the image's own
-    grid.  Returns ``multi`` [B, HW, HW] matrices."""
-    e = _affinity(H, W, tmask.device)
-    tm = tmask.to(torch.float32)
+    grid.  Returns ``multi`` [B, HW, HW] matrices in ``dtype``."""
+    e = _affinity(H, W, tmask.device, dtype)
+    tm = tmask.to(dtype)
     e_b = e[None] * tm[:, :, None] * tm[:, None, :]
     col = e_b.sum(dim=1, keepdim=True)  # [B, 1, N] valid-row sums
     A = torch.where(col > 0.0, e_b / torch.clamp(col, min=1e-30), 0.0)
@@ -157,14 +160,17 @@ class SpcaLayer(nn.Module):
         if tmask is not None:
             attn_ = attn_ * tmask[:, :, None]
         attn_ = attn_ / attn_.sum(dim=-2, keepdim=True)  # L1 over HW
+        # the masks in the head's dtype, at least fp32 (JAX: fp32 always;
+        # a float64 model's then round the same on every device)
+        dt = torch.promote_types(attn_.dtype, torch.float32)
         if tmask is None:
             parts = [torch.einsum("bnk,nm->bkm", attn_, m.to(attn_.dtype))
                      for m in distance_encoding_masks(H, W, self.multi,
-                                                      g_fea.device)]
+                                                      g_fea.device, dt)]
         else:
             parts = [torch.einsum("bnk,bnm->bkm", attn_, m.to(attn_.dtype))
                      for m in masked_distance_encoding_masks(
-                         H, W, self.multi, tmask)]
+                         H, W, self.multi, tmask, dt)]
         outp = self.p_norm(torch.cat(parts, dim=1).transpose(1, 2))
         return (outp.reshape(B, H, W, self.K * self.multi),
                 attn.reshape(B, H, W, self.K))

@@ -14,7 +14,9 @@
   LayerNorm (``models/layers.LayerNorm``).
 
 Training is cross entropy plus ``consistency_weight`` times the mean
-squared gap between the L2 of the fused and of the base vector.
+squared gap between the L2 of the fused and of the base vector.  Under a
+multi-GPU layout CASTLE and NEXUS attend over the global batch
+(``utils.collectives.data_gather_grad``), as JAX's GSPMD step does.
 ``extract`` runs PRISM and HARMONY only, with CASTLE and NEXUS as the
 identity (``[base, base, prism, base]``): each image's descriptor is
 independent of its batch, so bucketed extraction stays per-image.  The
@@ -45,6 +47,7 @@ from research_image_retrieval_tpu_torch.ops.losses import cross_entropy
 from research_image_retrieval_tpu_torch.ops.masking import hw_mask
 from research_image_retrieval_tpu_torch.ops.norm import l2_normalize
 from research_image_retrieval_tpu_torch.ops.pooling import gem_pool
+from research_image_retrieval_tpu_torch.utils import collectives
 from research_image_retrieval_tpu_torch.utils.device import fp32_precision
 
 __all__ = ["HARMONY", "PRISM", "BatchCASTLE", "BatchNEXUS", "SPECTRUMModel"]
@@ -185,9 +188,12 @@ class SPECTRUMModel(nn.Module):
         mock text)."""
         train_mode(self, train)
         base = self._base(x)
-        castle_out, _ = self.castle(base)
+        # the batch modules attend over the global batch under a layout;
+        # each rank keeps its rows
+        whole = collectives.data_gather_grad(base)
+        castle_out = collectives.data_rows(self.castle(whole)[0], len(base))
         prism_out = self.prism(base, text)["fused"]
-        nexus_out, _ = self.nexus(base)
+        nexus_out = collectives.data_rows(self.nexus(whole)[0], len(base))
         fused = self.harmony([base, castle_out, prism_out, nexus_out])
         logits = self.classifier(fused)
         cons = ((l2_normalize(fused) - l2_normalize(base)) ** 2).mean()

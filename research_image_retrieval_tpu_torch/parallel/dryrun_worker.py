@@ -12,7 +12,10 @@ card) or on the CPU (``--device cpu``).  Each rank asserts, in order:
 2. the train step on the ``(world, 1)`` and ``(1, world)`` layouts equals
    the single-device step on the same global batch, in float64
    (``parallel.verify.sharded_step_equivalence``): loss and grad_norm
-   within 1e-10 relative, parameters and BN statistics within 1e-9;
+   within 1e-10 relative, parameters and BN statistics within 1e-9; so
+   does one step of IRIS (dropout 0) and of SPECTRUM on ``(world, 1)``,
+   whose training couples the batch's samples (at least 96 px, so that
+   IRIS's layer4 map has rows for its bins);
 3. the cross-process sharded search, exact and int8, returns the single
    engine's ids (a gallery whose size the rank count does not divide);
 4. rank-sharded extraction gives the single-process descriptors within
@@ -39,6 +42,8 @@ import torch.distributed as dist
 SMALL = dict(backbone_name="resnet18", batch_size=4, imsize=32,
              num_classes=64)
 BARS = dict(loss=1e-10, grad_norm=1e-10, params=1e-9, batch_stats=1e-9)
+# models whose training couples the batch, with their overrides
+COUPLED = (("iris_r50", {"dropout": 0.0}), ("spectrum_r50", {}))
 
 
 def _steps(rank_dev, size: str) -> dict:
@@ -55,17 +60,23 @@ def _steps(rank_dev, size: str) -> dict:
         backbone_name="resnet50", batch_size=SHAPE["batch"],
         imsize=SHAPE["px"], num_classes=SHAPE["classes"])
     world = get_world_size()
+    runs = [(f"{d}x{m}", (d, m), dict(steps=2, **kw))
+            for d, m in ((world, 1), (1, world))]
+    runs += [(f"{name} {world}x1", (world, 1),
+              dict(kw, steps=1, model_name=name, model_overrides=ov,
+                   imsize=max(kw["imsize"], 96)))
+             for name, ov in COUPLED]
     out = {}
-    for layout in ((world, 1), (1, world)):
-        dev = sharded_step_equivalence(make_mesh(*layout), steps=2,
+    for key, layout, args in runs:
+        dev = sharded_step_equivalence(make_mesh(*layout),
                                        dtype=torch.float64, device=rank_dev,
-                                       **kw)
+                                       **args)
         rel = {"loss": dev["loss"] / abs(dev["loss_value"]),
                "grad_norm": dev["grad_norm"] / abs(dev["grad_norm_value"]),
                "params": dev["params"], "batch_stats": dev["batch_stats"]}
         miss = {k: v for k, v in rel.items() if not v <= BARS[k]}
-        assert not miss, f"layout {layout}: {miss} (bars {BARS})"
-        out[f"{layout[0]}x{layout[1]}"] = rel
+        assert not miss, f"{key}: {miss} (bars {BARS})"
+        out[key] = rel
     return out
 
 

@@ -42,11 +42,12 @@ def sharded_step_equivalence(
     seed: int = 0,
     dtype: torch.dtype = torch.float32,
     device="cuda",
+    model_overrides: dict | None = None,
 ) -> dict:
     """Run ``steps`` train steps over ``mesh`` and on one device, from the
     same init and the same global batches (made from ``seed`` with
     numpy), on ``device`` (CUDA by default: raises without a card; pass
-    "cpu" for the CPU).  Returns the largest absolute deviations on this
+    "cpu" for the CPU); ``model_overrides`` go to ``get_model``.  Returns the largest absolute deviations on this
     rank::
 
         {"loss": .., "grad_norm": .., "params": .., "batch_stats": ..,
@@ -70,7 +71,8 @@ def sharded_step_equivalence(
     tx = make_sgd_optimizer(sched, momentum=0.9, weight_decay=1e-4,
                             clip_max_norm=1.0)
     model = get_model(model_name, backbone_name=backbone_name,
-                      outputdim=num_classes, num_classes=num_classes)
+                      outputdim=num_classes, num_classes=num_classes,
+                      **(model_overrides or {}))
     state_s = create_train_state(model, seed, tx, device=device)
     model.to(dtype)  # drawn in float32 (float64 draws are slower)
     twin = copy.deepcopy(model)  # the same init, drawn once

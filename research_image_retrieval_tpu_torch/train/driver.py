@@ -21,11 +21,13 @@ reads its rows of the single-device run's global batch
 global-batch semantics (``train/loop.py``), and rank 0 alone writes the
 checkpoints (the sharded classifier gathered whole, so they load at any
 world size), the JSONL history, TensorBoard and ``curves.png``.  A layout
-that is not the world size, ``data_parallel`` / ``model_parallel`` > 1
-in one process, and a model whose training couples the batch in a way
-the step does not make global (``BATCH_COUPLED``) raise instead of
-training something else.  ``compute_dtype="bfloat16"`` builds a model
-with a ``dtype`` field at bf16, as the JAX driver does (an explicit
+that is not the world size and ``data_parallel`` / ``model_parallel``
+> 1 in one process raise instead of training something else.  The
+models whose training couples the batch's samples (SPECTRUM, IRIS,
+AdaptiveHybrid, SPARSE with a teacher) see the global batch there
+(``utils.collectives.data_gather_grad``).
+``compute_dtype="bfloat16"`` builds a model with a ``dtype`` field at
+bf16, as the JAX driver does (an explicit
 ``model_overrides["dtype"]`` wins; a model without the field gets a
 note); fp32 stays the default here, as in the JAX driver on every
 platform but the TPU.  ``teacher=True`` builds the distillation teacher's
@@ -105,28 +107,9 @@ from research_image_retrieval_tpu_torch.utils.collectives import (
 from research_image_retrieval_tpu_torch.utils.config import TrainConfig
 from research_image_retrieval_tpu_torch.utils.device import resolve_device
 
-__all__ = ["BATCH_COUPLED", "build_datasets", "build_optimizer",
+__all__ = ["build_datasets", "build_optimizer",
            "build_teacher_table", "check_config", "model_kwargs",
            "resolve_layout", "train"]
-
-# Train-mode operations that reduce over the batch beyond what the
-# multi-GPU step makes global (BN, TokenBatchNorm, MadaCos' statistics,
-# DELG's EMA target): at world size > 1 each rank would see only its
-# shard's pairs, so these models raise there (ROADMAP Queue 1 item 9).
-# name -> (the operation, whether only with a teacher table)
-BATCH_COUPLED = {
-    "spectrum_r50": ("BatchCASTLE / BatchNEXUS attention between the "
-                     "batch's samples (models/spectrum.py)", False),
-    "iris_r50": ("iris_loss's contrastive term over the batch's "
-                 "similarity matrix (models/iris.py)", False),
-    "adaptive_hybrid_r50": ("contrastive_loss, an InfoNCE over the batch's "
-                            "similarity matrix (models/adaptive_hybrid.py)",
-                            False),
-    "sparse_r50": ("the distillation cross entropy over the batch's "
-                   "student x teacher similarity matrix (models/sparse.py)",
-                   True),
-}
-
 
 def _launched_world() -> int:
     """The world size of this run: the process group's, else what a
@@ -141,21 +124,12 @@ def _launched_world() -> int:
     return 1
 
 
-def check_config(cfg: TrainConfig, world_size: int = 1) -> None:
+def check_config(cfg: TrainConfig) -> None:
     """Raise on what the port cannot run as asked (never a quiet
-    substitute), for a run of ``world_size`` processes."""
+    substitute)."""
     if cfg.compute_dtype not in ("", "float32", "bfloat16"):
         raise ValueError(f"compute_dtype={cfg.compute_dtype!r}: '', "
                          "'float32' or 'bfloat16'")
-    layout = (cfg.data_parallel or 1) * (cfg.model_parallel or 1)
-    if world_size > 1 or layout > 1:
-        name = TABLE1_TO_MODEL_MAPPING.get(cfg.model, cfg.model)
-        op, with_teacher = BATCH_COUPLED.get(name, (None, False))
-        if op and (cfg.teacher or not with_teacher):
-            raise NotImplementedError(
-                f"{cfg.model} couples the batch in training through {op}; "
-                "the multi-GPU step does not make that global, so it "
-                "trains on one process only (ROADMAP Queue 1 item 9)")
 
 
 def resolve_layout(cfg: TrainConfig):
@@ -334,7 +308,7 @@ def train(cfg: TrainConfig, max_steps_per_epoch: int | None = None):
     distributed run); returns (state, history), the same on every rank.
     ``history["preempted"]`` is True when the guard stopped the run
     after a checkpoint."""
-    check_config(cfg, _launched_world())
+    check_config(cfg)
     mesh = resolve_layout(cfg)
     device = (resolve_device(cfg.device) if mesh is None
               else local_device(cfg.device))

@@ -12,7 +12,10 @@ the ranks' own bit for bit).
 the calling thread: the train-mode ``BatchNorm`` then takes its
 statistics over the data group, the losses reduce the sharded classifier
 over the model group and take their batch statistics (MadaCos' median
-and means, DELG's EMA target) over the data group.  Outside it, or with
+and means, DELG's EMA target) over the data group, and the operations
+that couple a batch's samples (SPECTRUM's batch attention, the
+contrastive terms of IRIS and AdaptiveHybrid, SPARSE's distillation)
+see the global batch through ``data_gather_grad``.  Outside it, or with
 ``None``, every function here is the identity.  The layout is read in
 the forward only; the backward functions keep the groups they were
 given there.
@@ -33,7 +36,9 @@ __all__ = [
     "copy_to_group",
     "data_axis",
     "data_gather",
+    "data_gather_grad",
     "data_mean",
+    "data_rows",
     "gather_columns",
     "model_shard",
     "reduce_from_group",
@@ -96,6 +101,50 @@ def data_gather(t: torch.Tensor) -> torch.Tensor:
     out = t.new_zeros((size * n, *t.shape[1:]))
     out[index * n:(index + 1) * n] = t.detach()
     return all_reduce_(out, group)
+
+
+class _GatherRows(torch.autograd.Function):
+    """Forward: the data ranks' rows concatenated in data order.
+    Backward: this rank's rows of the gradient summed over the ranks
+    (each rank's loss may read every row)."""
+
+    @staticmethod
+    def forward(ctx, t, group, size, index):
+        n = t.shape[0]
+        ctx.group, ctx.rows = group, slice(index * n, (index + 1) * n)
+        out = t.new_zeros((size * n, *t.shape[1:]))
+        out[ctx.rows] = t
+        return all_reduce_(out, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.clone(), ctx.group)[ctx.rows], None, None, None
+
+
+def data_gather_grad(t: torch.Tensor) -> torch.Tensor:
+    """The data ranks' ``t`` (equal shapes) concatenated on dim 0 in data
+    order, on every rank, with a gradient: a batch-wide operation of the
+    step computed on it sees the global batch, as JAX's GSPMD step does.
+    The gradient of every rank's loss reaches the rows it came from, and
+    the step's gradient average divides by the rank count once, so a term
+    that every rank computes whole from the gathered rows is counted once
+    and a rank's own term (its rows of a gathered computation) once per
+    rank, as a mean over equal shards is."""
+    axis = data_axis()
+    # outside a layout the same node, over a group of one: the gradients
+    # of the rows' readers meet in the same order, so a layout of one
+    # steps bit for bit as the plain step
+    return _GatherRows.apply(t, *(axis or (None, 1, 0)))
+
+
+def data_rows(whole: torch.Tensor, n: int) -> torch.Tensor:
+    """This rank's ``n`` rows of a tensor over the global batch (the
+    layout of ``data_gather_grad``); ``whole`` outside a layout."""
+    axis = data_axis()
+    if axis is None:
+        return whole
+    index = axis[2]
+    return whole[index * n:(index + 1) * n]
 
 
 def gather_columns(t: torch.Tensor, cols: slice, full: int,

@@ -109,6 +109,10 @@ class EvalConfig:
     # raw uint8 to the device, normalization and every scale's resize
     # there (one H2D transfer per image); False resizes on the host
     device_scales: bool = True
+    # the split JPEG decode with k x k coefficients per block (0: off):
+    # the host entropy-decodes, the device finishes the decode; needs
+    # device_scales
+    dct_decode: int = 0
     # a .pt state dict (the port's model or a torchvision ResNet) or an
     # .npz of flax variables flattened with "/" keys
     checkpoint: str | None = None
