@@ -5,7 +5,8 @@ Loads each path, optionally crops the query bounding box, thumbnails so
 the max side == imsize, and yields variable-resolution single images for
 the bucketed extractor (``index.extract_vectors``); with ``dct_coeffs``
 a JPEG item is instead the host half of the split decode
-(``data.native_decode.JpegCoeffs``).
+(``data.native_decode.JpegCoeffs``), its entropy decode under the span
+``extract.entropy_decode`` (``utils.profiling.span``).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from research_image_retrieval_tpu_torch.data.transforms import (
     normalize,
     rgb_to_bgr,
 )
+from research_image_retrieval_tpu_torch.utils.profiling import span
 
 __all__ = ["ImageFromList", "PrefetchedImages", "load_image"]
 
@@ -96,7 +98,9 @@ class ImageFromList:
         if self.bbxs is not None and self.bbxs[i] is not None:
             return None  # crop coordinates are in pixels
         with open(path, "rb") as f:
-            co = decode_jpeg_coeffs(f.read(), k=self.dct_coeffs)
+            data = f.read()
+        with span("extract.entropy_decode", id=i):
+            co = decode_jpeg_coeffs(data, k=self.dct_coeffs)
         if co is None or not self.imsize:
             return co
         # DCT-domain prescale: the smallest 1/2^p whose max side is still

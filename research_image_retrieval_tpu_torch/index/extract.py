@@ -27,6 +27,14 @@ rank runs its own buckets, and the descriptors are gathered in input
 order.  With ``dct_decode`` JPEG items arrive as the split decode's
 quantized DCT coefficients (``data.native_decode.JpegCoeffs``) and are
 decoded on the device inside their buckets (``_DctAccumStream``).
+
+Spans (``utils.profiling.span``, recorded while a profiler records):
+``extract.vectors`` (the call), ``extract.source`` (each wait on the
+caller's images), ``extract.batch`` (one dispatched batch, with counts
+``rows``, ``rows_padded``, ``px_valid``, ``px_fed`` and ``slot_alloc``)
+holding ``extract.slot_wait``, ``extract.assemble``, ``extract.h2d`` and
+``extract.dispatch``, and ``extract.readback`` (a block's flush and
+copy to the host).
 """
 
 from __future__ import annotations
@@ -51,11 +59,13 @@ from research_image_retrieval_tpu_torch.utils.device import (
     fp32_precision,
     resolve_device,
 )
+from research_image_retrieval_tpu_torch.utils.profiling import span
 
 __all__ = ["extract_vectors", "multiscale_descriptor", "resize_bilinear_np"]
 
 _MIN_SIDE = 36
 _UPSCALE_TARGET = 64
+_END = object()  # the end of the caller's images
 _TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
                  np.dtype(np.uint8): torch.uint8,
                  np.dtype(np.int16): torch.int16,
@@ -183,9 +193,10 @@ class _Staging:
     """Host staging of batches: pinned buffers and a side-stream H2D copy
     on CUDA, plain numpy-backed tensors on the CPU.
 
-    ``depth`` slots rotate; before a slot is refilled the host waits for
-    the device to finish the batch that last used it, which bounds the
-    run-ahead to ``depth`` batches.
+    ``depth`` slots rotate; before a slot is refilled (``wait``) the host
+    waits for the device to finish the batch that last used it, which
+    bounds the run-ahead to ``depth`` batches.  ``fresh`` says whether
+    the last ``take`` allocated the slot's buffers anew.
     """
 
     def __init__(self, depth: int, device: torch.device):
@@ -195,18 +206,27 @@ class _Staging:
         self.slots: list = [None] * self.depth
         self.done: list = [None] * self.depth
         self.i = 0
+        self.fresh = False
         self.stream = torch.cuda.Stream(device) if self.cuda else None
 
-    def take(self, specs) -> list[np.ndarray]:
-        """Host arrays of the given (shape, dtype) specs to fill."""
+    def wait(self) -> None:
+        """Block until the device is done with the next slot's batch."""
         s = self.i % self.depth
         if self.done[s] is not None:
-            self.done[s].synchronize()
+            with span("extract.slot_wait"):
+                self.done[s].synchronize()
             self.done[s] = None
+
+    def take(self, specs) -> list[np.ndarray]:
+        """Host arrays of the given (shape, dtype) specs to fill, in the
+        next slot (after ``wait``)."""
+        s = self.i % self.depth
         want = [(tuple(shape), _TORCH_DTYPES[np.dtype(dt)])
                 for shape, dt in specs]
         bufs = self.slots[s]
-        if bufs is None or [(tuple(b.shape), b.dtype) for b in bufs] != want:
+        self.fresh = (bufs is None or
+                      [(tuple(b.shape), b.dtype) for b in bufs] != want)
+        if self.fresh:
             bufs = [torch.empty(shape, dtype=dt, pin_memory=self.cuda)
                     for shape, dt in want]
             self.slots[s] = bufs
@@ -302,14 +322,34 @@ class _AccumStream:
             batch[r, : img.shape[0], : img.shape[1]] = img
             self._fill_meta(meta, r, task)
 
+    def _specs(self, key: tuple) -> list:
+        """(shape, dtype) of the batch's host buffers, the meta last."""
+        return [((self.batch_size, key[0], key[1], 3), self.in_dtype),
+                ((self.batch_size, self._meta_width()), np.int32)]
+
+    def _pixels(self, key: tuple, meta: np.ndarray, n: int):
+        """(valid pixels of the ``n`` real rows over every scale they
+        run, pixels the model is fed over the batch's scales)."""
+        valid = int((meta[:n, 0].astype(np.int64) * meta[:n, 1]).sum())
+        return valid, self.batch_size * key[0] * key[1]
+
     def _dispatch(self, key: tuple, chunk) -> None:
-        batch, meta = self.staging.take([
-            ((self.batch_size, key[0], key[1], 3), self.in_dtype),
-            ((self.batch_size, self._meta_width()), np.int32)])
-        self._assemble(key, chunk, batch, meta)
-        batch_d, meta_d = self.staging.put()
-        self._run(key, batch_d, meta_d)
-        self.staging.release()
+        staging = self.staging
+        with span("extract.batch", id=staging.i) as s:
+            staging.wait()
+            with span("extract.assemble"):
+                bufs = staging.take(self._specs(key))
+                self._assemble(key, chunk, *bufs)
+            if s:
+                valid, fed = self._pixels(key, bufs[-1], len(chunk))
+                s.count(rows=len(chunk), rows_padded=self.batch_size,
+                        px_valid=valid, px_fed=fed,
+                        slot_alloc=int(staging.fresh))
+            with span("extract.h2d"):
+                bufs = staging.put()
+            with span("extract.dispatch"):
+                self._run(key, *bufs)
+            staging.release()
 
     def _run(self, key: tuple, batch: torch.Tensor, meta: torch.Tensor):
         self._accumulate(meta[:, 2], self.extract_fn(batch, meta[:, :2]))
@@ -327,19 +367,20 @@ class _AccumStream:
 
     def _finalize_block(self) -> None:
         """Flush pending buckets and read the current block back once."""
-        for key in list(self.pending):
-            if self.pending[key]:
-                self._dispatch(key, self.pending[key])
-                self.pending[key] = []
-        n = self.block_n
-        if n == 0:
-            return
-        cap = self.block_cap
-        res = self.acc[:cap]
-        if self.multi:
-            kept = torch.clamp(self.kept[:cap], min=1).to(torch.float32)
-            res = l2_normalize(res / kept[:, None])
-        self.blocks.append(res[:n].cpu().numpy())
+        with span("extract.readback"):
+            for key in list(self.pending):
+                if self.pending[key]:
+                    self._dispatch(key, self.pending[key])
+                    self.pending[key] = []
+            n = self.block_n
+            if n == 0:
+                return
+            cap = self.block_cap
+            res = self.acc[:cap]
+            if self.multi:
+                kept = torch.clamp(self.kept[:cap], min=1).to(torch.float32)
+                res = l2_normalize(res / kept[:, None])
+            self.blocks.append(res[:n].cpu().numpy())
         self.acc = None
         self.kept = None
         self.block_base += n
@@ -448,6 +489,12 @@ class _DeviceScaleAccumStream(_AccumStream):
                 for s in self.scales]
         return pads, [s == 1.0 and mult == 1 for s in self.scales]
 
+    def _pixels(self, key: tuple, meta: np.ndarray, n: int):
+        m = meta[:n].astype(np.int64)  # per scale: out h, out w, ok
+        valid = int((m[:, 3::3] * m[:, 4::3] * m[:, 5::3]).sum())
+        pads, _ = self._pads(key)
+        return valid, self.batch_size * sum(h * w for h, w in pads)
+
     def _run(self, key: tuple, batch: torch.Tensor, meta: torch.Tensor):
         self._extract_scales(self.prep(batch), meta, *self._pads(key))
 
@@ -528,26 +575,35 @@ class _DctAccumStream(_DeviceScaleAccumStream):
                self._q(max(t[1] for t in targets)), img.subsamp, img.k, n)
         return key, (owner, img, None)
 
-    def _dispatch(self, key: tuple, chunk) -> None:
+    def _pads(self, key: tuple):
         if key[0] != "dct":
-            return super()._dispatch(key, chunk)
-        _, cqh, cqw, tqh, tqw, ss, k, n = key
-        pads, _ = self._pads((tqh, tqw, "ms"))  # every scale resizes
+            return super()._pads(key)
+        pads, _ = super()._pads((key[3], key[4], "ms"))
+        return pads, [False] * len(self.scales)  # every scale resizes
+
+    def _specs(self, key: tuple) -> list:
+        if key[0] != "dct":
+            return super()._specs(key)
+        _, cqh, cqw, _, _, ss, k, n = key
         B, Yb, Xb = self.batch_size, cqh // n, cqw // n
         f = 2 if ss == 2 else 1
-        cy, cc, qt, meta = self.staging.take([
-            ((B, Yb, Xb, k, k), np.int16),
-            ((B, 2, Yb // f, Xb // f, k, k), np.int16),
-            ((B, 2, k, k), np.float32),
-            ((B, self._meta_width()), np.int32)])
+        return [((B, Yb, Xb, k, k), np.int16),
+                ((B, 2, Yb // f, Xb // f, k, k), np.int16),
+                ((B, 2, k, k), np.float32),
+                ((B, self._meta_width()), np.int32)]
+
+    def _assemble(self, key: tuple, chunk, *bufs) -> None:
+        if key[0] != "dct":
+            return super()._assemble(key, chunk, *bufs)
+        cy, cc, qt, meta = bufs
         cy.fill(0)
         cc.fill(0)
         qt.fill(1.0)
         # padding rows: full-canvas extents, every scale invalid -> trash
         meta[:] = self.block_cap
-        meta[:, 0] = cqh
-        meta[:, 1] = cqw
-        for si, (ph, pw) in enumerate(pads):
+        meta[:, 0] = key[1]
+        meta[:, 1] = key[2]
+        for si, (ph, pw) in enumerate(self._pads(key)[0]):
             meta[:, 3 + 3 * si: 6 + 3 * si] = (ph, pw, 0)
         for r, (owner, item, _) in enumerate(chunk):
             yb, xb = item.coef_y.shape[:2]
@@ -560,7 +616,12 @@ class _DctAccumStream(_DeviceScaleAccumStream):
             meta[r, 2] = owner - self.block_base
             for si, t in enumerate(self._targets(item)):
                 meta[r, 3 + 3 * si: 6 + 3 * si] = t
-        cy_d, cc_d, qt_d, meta_d = self.staging.put()
+
+    def _run(self, key: tuple, *bufs) -> None:
+        if key[0] != "dct":
+            return super()._run(key, *bufs)
+        _, cqh, cqw, _, _, ss, _, n = key
+        cy_d, cc_d, qt_d, meta_d = bufs
         rgb = dct_decode_rgb(cy_d, cc_d, qt_d[:, 0], qt_d[:, 1], ss, n)
         # zero the padding region, as the RGB path's canvas is
         vh, vw = meta_d[:, 0], meta_d[:, 1]
@@ -568,9 +629,7 @@ class _DctAccumStream(_DeviceScaleAccumStream):
         rows = torch.arange(cqh, device=dev)[None, :, None] < vh[:, None, None]
         cols = torch.arange(cqw, device=dev)[None, None, :] < vw[:, None, None]
         rgb = rgb * (rows & cols)[..., None]
-        self._extract_scales(self.prep(rgb), meta_d, pads,
-                             [False] * len(self.scales))
-        self.staging.release()
+        self._extract_scales(self.prep(rgb), meta_d, *self._pads(key))
 
 
 def extract_vectors(
@@ -654,7 +713,7 @@ def extract_vectors(
         raise ValueError("input_norm requires device_scales=True and "
                          "bucketed mode (uint8 images are normalized on "
                          "the device)")
-    with torch.no_grad():
+    with torch.no_grad(), span("extract.vectors"):
         if bucket is None:
             imgs = [np.asarray(img) for img in images]
             if not imgs:
@@ -691,7 +750,7 @@ def extract_vectors(
                 i, img, scales, multiple=extent_multiple, antialias=antialias)
         in_dtype = stream.in_dtype
         n = 0
-        for i, img in enumerate(images):
+        for i, img in enumerate(_sourced(images)):
             if not (dct_decode and isinstance(img, JpegCoeffs)):
                 img = np.asarray(img)
                 if in_dtype == np.uint8 and img.dtype != np.uint8:
@@ -708,6 +767,17 @@ def extract_vectors(
         if n == 0:
             return np.zeros((0, outputdim or 0), dtype=np.float32)
         return stream.finish()
+
+
+def _sourced(images: Iterable):
+    """``images``, each wait on the next under ``extract.source``."""
+    it = iter(images)
+    while True:
+        with span("extract.source"):
+            img = next(it, _END)
+        if img is _END:
+            return
+        yield img
 
 
 def _extract_over_ranks(mesh, extract_fn, images, device, outputdim, **kw):

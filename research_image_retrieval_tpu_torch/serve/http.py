@@ -4,14 +4,17 @@
 Endpoints (JSON in/out, no dependencies beyond the standard library):
 
 * ``GET  /healthz`` — liveness + index summary.
-* ``GET  /stats``   — request counters and latency percentiles.
+* ``GET  /stats``   — request counters, latency percentiles, and the
+  summed queue waits and engine time (``queue_wait_ms_total``,
+  ``engine_ms_total``).
 * ``POST /search``  — ``{"vectors": [[...], ...], "k": 10}`` ->
   ``{"results": [{"matches": [{"index", "name", "score"}, ...]}]}``.
 * ``POST /search/image`` — ``{"images_b64": ["<jpeg/png base64>", ...],
   "k": 10}``; available when the server was started with a model
   (``cli.serve --model ... [--checkpoint ...]``).  Images are decoded
   (the native prescaled JPEG decoder where it builds), thumbnailed to the
-  model's imsize, extracted, and searched in one round trip.
+  model's imsize, extracted, and searched in one round trip; the decode
+  runs under the span ``serve.decode`` (``utils.profiling.span``).
 
 ``ThreadingHTTPServer`` handles each request on its own thread; the
 service's micro-batching worker coalesces concurrent /search bodies into
@@ -30,6 +33,7 @@ import numpy as np
 from research_image_retrieval_tpu_torch.data.native_decode import (
     decode_image as decode_image_bytes,
 )
+from research_image_retrieval_tpu_torch.utils.profiling import span
 
 __all__ = ["decode_image_bytes", "make_http_server"]
 
@@ -147,11 +151,12 @@ class _Handler(BaseHTTPRequestHandler):
                 if not b64s:
                     return self._reply(
                         400, {"error": "need images_b64 (list) or image_b64"})
-                images = [
-                    decode_image_bytes(base64.b64decode(s),
-                                       max_side=extractor.imsize)
-                    for s in b64s
-                ]
+                with span("serve.decode"):
+                    images = [
+                        decode_image_bytes(base64.b64decode(s),
+                                           max_side=extractor.imsize)
+                        for s in b64s
+                    ]
                 vecs = extractor(images)
                 scores, idx = service.search(vecs, k=k)
                 return self._reply(200, _results_json(service, scores, idx))

@@ -22,6 +22,15 @@ JAX.
 All engine calls run on one worker thread, on a CUDA stream of its own;
 callers block on an event, so the service is safe to drive from any
 number of request threads.
+
+``stats()`` sums each request's wait in the queue (enqueue to the worker
+taking it) and each coalesced engine call's time, always.  While a
+profiler records, each request's wait is stored as the span
+``serve.queue_wait`` (``utils.profiling.record``: it starts on the
+caller's thread and ends on the worker's) and each engine call runs
+under ``serve.engine``, whose id is its first request's; the extractor's
+calls hold ``serve.thumbnail``, ``serve.lock_wait`` and
+``serve.extract``.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import itertools
 import queue
 import threading
 import time
@@ -59,6 +69,7 @@ from research_image_retrieval_tpu_torch.parallel.dist_search import (
 )
 from research_image_retrieval_tpu_torch.utils.config import EvalConfig
 from research_image_retrieval_tpu_torch.utils.device import resolve_device
+from research_image_retrieval_tpu_torch.utils.profiling import record, span
 
 __all__ = ["ImageExtractor", "SearchService"]
 
@@ -68,6 +79,9 @@ class _Request:
     vecs: np.ndarray  # [n, D] fp32
     k: int
     done: threading.Event
+    id: int = 0
+    t_enq: int = 0   # time.perf_counter_ns at the enqueue
+    t_take: int = 0  # ... when the worker took it
     scores: np.ndarray | None = None
     indices: np.ndarray | None = None
     error: BaseException | None = None
@@ -180,6 +194,7 @@ class SearchService:
         self._lock = threading.Lock()
         self._latencies = collections.deque(maxlen=4096)
         self._counts = collections.Counter()
+        self._ids = itertools.count()
         self._t0 = time.monotonic()
         self._worker = threading.Thread(target=self._worker_loop,
                                         name="rir-serve-worker", daemon=True)
@@ -241,6 +256,7 @@ class SearchService:
                 continue
             if first is None:
                 break
+            first.t_take = time.perf_counter_ns()
             batch = [first]
             rows = first.vecs.shape[0]
             deadline = time.monotonic() + self.window_s
@@ -255,6 +271,7 @@ class SearchService:
                 if req is None:
                     self._stop.set()
                     break
+                req.t_take = time.perf_counter_ns()
                 batch.append(req)
                 rows += req.vecs.shape[0]
             self._execute(batch)
@@ -269,6 +286,9 @@ class SearchService:
                 req.done.set()
 
     def _execute(self, batch: list[_Request]):
+        for req in batch:
+            record("serve.queue_wait", req.t_enq, req.t_take, id=req.id)
+        t0 = time.perf_counter_ns()
         try:
             allq = (batch[0].vecs if len(batch) == 1
                     else np.concatenate([r.vecs for r in batch], axis=0))
@@ -276,7 +296,8 @@ class SearchService:
             scores = np.empty((total, self.k), np.float32)
             indices = np.empty((total, self.k), np.int32)
             calls = 0
-            with self._on_worker_stream(), torch.no_grad():
+            with self._on_worker_stream(), torch.no_grad(), \
+                    span("serve.engine", id=batch[0].id) as sp:
                 for start in range(0, total, self.max_batch):
                     sub = allq[start:start + self.max_batch]
                     n = sub.shape[0]
@@ -287,6 +308,9 @@ class SearchService:
                     scores[start:start + n] = s[:n].cpu().numpy()
                     indices[start:start + n] = i[:n].cpu().numpy()
                     calls += 1
+                if sp:
+                    sp.count(queries=total, calls=calls)
+            t1 = time.perf_counter_ns()
             row = 0
             for req in batch:
                 n = req.vecs.shape[0]
@@ -298,6 +322,9 @@ class SearchService:
                 self._counts["engine_calls"] += calls
                 self._counts["coalesced_batches"] += 1
                 self._counts["queries"] += total
+                self._counts["engine_ns"] += t1 - t0
+                self._counts["queue_wait_ns"] += sum(r.t_take - r.t_enq
+                                                     for r in batch)
         except BaseException as e:  # deliver failures to the callers
             for req in batch:
                 if not req.done.is_set():
@@ -320,8 +347,9 @@ class SearchService:
         kk = self.k if k is None else int(k)
         if not 0 < kk <= self.k:
             raise ValueError(f"k must be in [1, {self.k}], got {kk}")
-        req = _Request(np.ascontiguousarray(v), kk, threading.Event())
-        t0 = time.monotonic()
+        req = _Request(np.ascontiguousarray(v), kk, threading.Event(),
+                       id=next(self._ids))
+        req.t_enq = time.perf_counter_ns()
         self._queue.put(req)
         # Bounded waits, re-checking liveness: close() may set _stop and
         # drain the queue between the _stop check above and the put; the
@@ -333,7 +361,8 @@ class SearchService:
             raise req.error
         with self._lock:
             self._counts["requests"] += 1
-            self._latencies.append((time.monotonic() - t0) * 1e3)
+            self._latencies.append((time.perf_counter_ns() - req.t_enq)
+                                   / 1e6)
         return req.scores, req.indices
 
     def match_names(self, indices) -> np.ndarray:
@@ -358,6 +387,10 @@ class SearchService:
             **{key: counts.get(key, 0)
                for key in ("requests", "queries", "engine_calls",
                            "coalesced_batches")},
+            # where request time went: waits in the queue, engine calls
+            "queue_wait_ms_total": round(counts.get("queue_wait_ns", 0)
+                                         / 1e6, 3),
+            "engine_ms_total": round(counts.get("engine_ns", 0) / 1e6, 3),
         }
         if lat:
             out["latency_ms"] = {
@@ -429,17 +462,23 @@ class ImageExtractor:
         """[H, W, 3] uint8 RGB images (list) -> [n, D] fp32 descriptors."""
         prepped = []
         dev = self._bucket is not None  # exact shapes: normalized on the host
-        for img in images:
-            img = np.asarray(img, np.uint8)
-            if self.imsize:
-                img = imthumbnail(img, self.imsize)
-            prepped.append(np.ascontiguousarray(img) if dev else
-                           normalize(img.astype(np.float32) / 255.0))
-        with self._lock:
-            vecs = extract_vectors(
-                self._extract, prepped, scales=self.scales,
-                bucket=self._bucket, batch_size=self.batch_size,
-                extent_multiple=self._multiple, device_scales=dev,
-                input_norm=(IMAGENET_MEAN, IMAGENET_STD) if dev else None,
-                device=self.device)
+        with span("serve.thumbnail"):
+            for img in images:
+                img = np.asarray(img, np.uint8)
+                if self.imsize:
+                    img = imthumbnail(img, self.imsize)
+                prepped.append(np.ascontiguousarray(img) if dev else
+                               normalize(img.astype(np.float32) / 255.0))
+        with span("serve.lock_wait"):
+            self._lock.acquire()
+        try:
+            with span("serve.extract"):
+                vecs = extract_vectors(
+                    self._extract, prepped, scales=self.scales,
+                    bucket=self._bucket, batch_size=self.batch_size,
+                    extent_multiple=self._multiple, device_scales=dev,
+                    input_norm=(IMAGENET_MEAN, IMAGENET_STD) if dev else None,
+                    device=self.device)
+        finally:
+            self._lock.release()
         return np.asarray(vecs, np.float32)

@@ -46,6 +46,7 @@ from research_image_retrieval_tpu_torch.train.optimizer import (
 )
 from research_image_retrieval_tpu_torch.utils import collectives
 from research_image_retrieval_tpu_torch.utils.device import fp32_precision
+from research_image_retrieval_tpu_torch.utils.profiling import span
 
 __all__ = ["TrainState", "create_train_state", "make_eval_step",
            "make_train_step", "shard_train_state"]
@@ -223,12 +224,19 @@ def make_train_step(input_norm=None, teacher_table=None, mesh=None):
     is updated in place and returned.  With ``mesh`` the step takes this
     rank's rows of the global batch and returns the global batch's
     metrics (see the module docstring); ``grad_norm`` is then the norm
-    of the averaged gradients, as JAX's."""
+    of the averaged gradients, as JAX's.  Spans (``utils.profiling.span``):
+    ``train.step`` (its id the step count before it) holding
+    ``train.forward``, ``train.backward`` (with the gradient average) and
+    ``train.optimizer``."""
     prep = fused_input_norm(input_norm)
     teacher = _Teacher(teacher_table)
     layout = _Layout(mesh)
 
     def step_fn(state: TrainState, images, labels):
+        with span("train.step", id=state.step):
+            return _step(state, images, labels)
+
+    def _step(state: TrainState, images, labels):
         model, opt = state.model, state.optimizer
         dev = next(model.parameters()).device
         x, y = _to_device(images, labels, dev)
@@ -243,10 +251,14 @@ def make_train_step(input_norm=None, teacher_table=None, mesh=None):
         layout.check_rows(x.shape[0], dev)
         with fp32_precision(), collectives.active_mesh(mesh):
             opt.zero_grad()
-            loss, logits, *model_state = model(prep(x), y, train=True, **kw)
-            loss.backward()
-            layout.average(model)
-            grad_norm = opt.step()
+            with span("train.forward"):
+                loss, logits, *model_state = model(prep(x), y, train=True,
+                                                   **kw)
+            with span("train.backward"):
+                loss.backward()
+                layout.average(model)
+            with span("train.optimizer"):
+                grad_norm = opt.step()
         with torch.no_grad():
             for name, value in (model_state[0] if model_state else {}).items():
                 _unwrapped(model).get_buffer(name).copy_(value)

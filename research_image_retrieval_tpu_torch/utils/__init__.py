@@ -10,10 +10,9 @@ from research_image_retrieval_tpu_torch.utils.device import (
 from research_image_retrieval_tpu_torch.utils.profiling import (
     deterministic_mode,
     nan_check,
-    step_timer,
     trace,
 )
 
 __all__ = ["EvalConfig", "TrainConfig", "deterministic_mode",
            "fp32_precision", "get_preset", "nan_check", "resolve_device",
-           "step_timer", "trace"]
+           "trace"]
