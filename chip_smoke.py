@@ -7,11 +7,13 @@ Phases (any failure raises and exits non-zero; there is no fallback):
   1. the card's name and power limit, the torch and CUDA versions, and a
      build of every CUDA kernel from ``research_image_retrieval_tpu_torch/csrc``;
   2. each kernel against its plain PyTorch version on the card, at the
-     main path's shapes: one call between CUDA events (kernel and plain
-     version alike, the ``ms`` and ``plain_ms`` of the summary), the
-     kernel's device time per call (CUDA events around calls queued
-     behind a device-side wait, ``device_ms``), each launch's device time
-     (torch.profiler, printed only), and its bounds; then (2-bf16) the
+     main path's shapes and the benchmark index cell's layer-3 shapes:
+     one call between CUDA events (kernel and plain version alike, the
+     ``ms`` and ``plain_ms`` of the summary), the kernel's device time
+     per call (CUDA events around calls queued behind a device-side
+     wait, ``device_ms``), each launch's device time (torch.profiler,
+     printed only) beside its stream-K plan (CTAs, whole and split
+     tiles), and its bounds; then (2-bf16) the
      bf16 forms: the bottleneck at the same 16 geometries and the head on
      bf16 maps at the three layer4 shapes, each against its plain
      version, timed, with the bound at 2-byte activations and the dense
@@ -20,7 +22,8 @@ Phases (any failure raises and exits non-zero; there is no fallback):
      CUDA against the port's own CPU path, same seeded GeM-R50 weights;
   4. the serving slice at full width (ResNet-50, 2048-d, 1024 px ms3):
      synthetic Revisited fixture -> extract -> rank -> streaming top-k ->
-     E/M/H mAP, with each kernel's launch count over this run;
+     E/M/H mAP, with each kernel's launch count over this run and the
+     bottleneck's output tiles and split tiles (some must be split);
   5. a warm timed extraction of 64 fixture images on the same path
      (steady img/s), then a torch.profiler pass over the same run: device
      time by kernel group and the device's busy share;
@@ -157,6 +160,10 @@ HBM_RATE = 3.35e12  # H100 SXM HBM3 bytes/s
 R50_IDENTITY = ((256, 64, 256, 2), (512, 128, 128, 3),
                 (1024, 256, 64, 5), (2048, 512, 32, 2))  # C, Cw, side, blocks
 BUCKETS = (1024, 768, 512)  # the 128 px buckets of 1024 px ms3 images
+# the benchmark's index cell at layer 3 (B=8): M = 24576, 18432, 15360,
+# 12288, 9216, 6144, 4608 over its six buckets at scales 1, 2^-1/2, 1/2
+INDEX_LAYER3 = ((48, 64), (48, 48), (40, 48), (48, 32), (24, 48), (24, 32),
+                (24, 24))
 
 
 def check_close(name, got, want, rtol, atol):
@@ -516,47 +523,61 @@ def check_bottleneck(torch, rb, label, x, ws, ext):
     return err
 
 
+def _plan_text(plan):
+    """The stream-K plan of the bottleneck's last fp32 call, as text."""
+    cols = list(zip(*plan))
+    return (f"plan conv1 / conv2 / conv3: CTAs {'/'.join(map(str, cols[0]))}"
+            f", whole tiles {'/'.join(map(str, cols[1]))}, split tiles "
+            f"{'/'.join(map(str, cols[2]))}")
+
+
 def phase_bottleneck(torch, rb, fp32_precision):
     """Kernel 2 at the shapes the main path launches: B=8 at the four R50
-    identity stages of the three buckets (1024 / 768 / 512 px), and B=2 at
-    1024 px (the rows of earlier runs).  Each geometry is checked against
-    the plain version, without and with extents, and so are two that stress
+    identity stages of the three buckets (1024 / 768 / 512 px), B=2 at
+    1024 px (the rows of earlier runs), and the index cell's layer-3
+    geometries (C=1024, B=8 at M = 24576 ... 4608: its six buckets at
+    scales 1, 2^-1/2 and 1/2).  Each geometry is checked against the
+    plain version, without and with extents, and so are two that stress
     the tiling (M = 494, not a multiple of a tile).  Timed per geometry:
     one call between CUDA events, kernel and plain version alike (the
     wrapper's host time shows there when it exceeds the device's), the
     kernel's device time (``device_ms``) and each of its three launches
-    (profiler), and, as a
-    yardstick the port never calls, torch.matmul (fp32, TF32 off) on
-    conv1's and conv3's GEMM shapes.  The bound counts conv1 on the valid
-    rows only (the extents zero the rest of its output); conv2 and conv3
-    run on every row."""
+    (profiler) beside each launch's stream-K plan (CTAs, whole and split
+    tiles), and, as a yardstick the port never calls, torch.matmul (fp32,
+    TF32 off) on conv1's and conv3's GEMM shapes.  The bound counts conv1
+    on the valid rows only (the extents zero the rest of its output);
+    conv2 and conv3 run on every row."""
     g = torch.Generator(device="cuda").manual_seed(2)
     max_err = 0.0
     for C, Cw in ((256, 64), (2048, 512)):
         x, ws, ext = bottleneck_inputs(torch, rb, g, 2, 19, 13, C, Cw)
         max_err = max(max_err, check_bottleneck(
             torch, rb, f"B=2 C={C} Cw={Cw} 19x13", x, ws, ext))
-    geoms = [(2, C, Cw, side, nblk, 1024)
+    geoms = [(2, C, Cw, side, side, nblk, f"{1024} px")
              for C, Cw, side, nblk in R50_IDENTITY]
-    geoms += [(8, C, Cw, side * px // 1024, nblk, px)
-              for px in BUCKETS for C, Cw, side, nblk in R50_IDENTITY]
+    geoms += [(8, C, Cw, side * px // 1024, side * px // 1024, nblk,
+               f"{px} px") for px in BUCKETS
+              for C, Cw, side, nblk in R50_IDENTITY]
+    geoms += [(8, 1024, 256, h, w, 0, "index cell layer 3")
+              for h, w in INDEX_LAYER3]
     tot = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0,
                fma_bound_ms=0.0)
     by_all = set()
-    for B, C, Cw, side, nblk, px in geoms:
-        x, ws, ext = bottleneck_inputs(torch, rb, g, B, side, side, C, Cw)
-        label = f"B={B} C={C} Cw={Cw} {side}x{side} ({px} px)"
+    for B, C, Cw, h, w, nblk, what in geoms:
+        x, ws, ext = bottleneck_inputs(torch, rb, g, B, h, w, C, Cw)
+        label = f"B={B} C={C} Cw={Cw} {h}x{w} ({what})"
         max_err = max(max_err, check_bottleneck(torch, rb, label, x, ws,
                                                 ext))
         run = lambda: rb.fused_bottleneck(x, *ws, extents=ext)
         ms = cuda_ms(torch, run)
+        plan = _plan_text(rb.fused_bottleneck.last_plan)
         plain = cuda_ms(torch, lambda: rb.fused_bottleneck_reference(
             x, *ws, extents=ext))
         dev = device_ms(torch, run)
         launches = launch_breakdown(torch, run, BOTTLENECK_LAUNCHES,
                                     ("conv1", "conv2", "conv3"))
-        M = B * side * side
-        Mv = int((ext[:, 0].clamp(0, side) * ext[:, 1].clamp(0, side)).sum())
+        M = B * h * w
+        Mv = int((ext[:, 0].clamp(0, h) * ext[:, 1].clamp(0, w)).sum())
         a1, a3 = x.reshape(M, C), torch.rand(M, Cw, device="cuda",
                                              generator=g)
         with fp32_precision():
@@ -568,8 +589,8 @@ def phase_bottleneck(torch, rb, fp32_precision):
         bnd, by = bound_ms(flops, nbytes, TF32X3_PEAK)
         fma, _ = bound_ms(flops, nbytes)
         print(f"bottleneck {label}: kernel {ms:.4f} ms per call between "
-              f"CUDA events, {dev:.4f} ms on the device ({launches}), "
-              f"plain {plain:.4f} ms, bound "
+              f"CUDA events, {dev:.4f} ms on the device ({launches}; "
+              f"{plan}), plain {plain:.4f} ms, bound "
               f"{bnd:.4f} ms at 3xTF32 ({by}), {fma:.4f} ms at fp32 FMA, "
               f"{flops / dev / 1e9:.1f} TFLOP/s on the device; torch.matmul "
               f"conv1 / conv3 shape {fmt_ms(mm)} ms")
@@ -3809,10 +3830,13 @@ def main() -> int:
     imgs, labels = serving_fixture(16, 1024)
     gh.gem_whiten_l2.launches = 0
     rb.fused_bottleneck.launches = 0
+    rb.fused_bottleneck.tiles = rb.fused_bottleneck.split_tiles = 0
     res = serving_slice(gpu_model, imgs, labels, SCALES, bucket=128, k=100,
                         device="cuda")
     launches = {"gem_head": gh.gem_whiten_l2.launches,
                 "bottleneck": rb.fused_bottleneck.launches}
+    tiles = {"tiles": rb.fused_bottleneck.tiles,
+             "split_tiles": rb.fused_bottleneck.split_tiles}
     if res["vecs"].shape != (len(imgs), 2048):
         raise AssertionError(f"descriptors: shape {res['vecs'].shape}")
     E, M, H = res["mAP"]
@@ -3821,11 +3845,15 @@ def main() -> int:
           f"{len(imgs) / res['extract_s']:.2f} img/s (host clock, first "
           f"run, includes cuDNN plan selection); mAP E {E} M {M} H {H}; "
           f"top-100 ids == rank_full on {res['n_distinct']} distinct "
-          f"scores; launches {launches}")
+          f"scores; launches {launches}; bottleneck stream-K tiles "
+          f"{tiles}")
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  "main path")
+    if tiles["split_tiles"] == 0:
+        raise AssertionError(f"the bottleneck's schedule split no tile on "
+                             f"the main path: {tiles}")
 
     # -- 5: steady-state extraction and where the device time goes -------
     imgs64, _ = serving_fixture(8, 1024)
@@ -3942,6 +3970,7 @@ def main() -> int:
     kernels = [dict(name=name, route="cuda", source=f"{src}{name}.cu",
                     replaces=replaces[name], launches=launches[name],
                     library_ms=None, **rows[name],
+                    **(tiles if name == "bottleneck" else {}),
                     serving_launches={step: n[name]
                                       for step, n in serving.items()},
                     train_launches={

@@ -34,8 +34,9 @@
 // device scratch buffers (t1, t2; each a quarter of x).  Rows are pixels,
 // columns output channels, and the weights are the B operand, K-major
 // ([N, K]), split on the host into a [2, N, K] (big, small) pair once per
-// parameter version.  One block computes a (64 * NWG) x BN output tile:
-//   - NWG consumer warpgroups issue wgmma.mma_async m64nBNk8 .tf32 with
+// parameter version.  A CTA computes 128 x BN output tiles (BN = 128, or
+// 64 where N = 64):
+//   - two consumer warpgroups issue wgmma.mma_async m64nBNk8 .tf32 with
 //     A from registers (where the activations are split: 2 cvt and 1
 //     subtraction per element) and B from shared memory (128-byte
 //     swizzled, the layout wgmma reads without bank conflicts);
@@ -55,11 +56,64 @@
 // Conv2 gathers its A operand on the fly (im2col is never written): K =
 // 9 * Cw runs over (tap, channel), a 32-deep stage never straddles a tap,
 // and taps outside the image, like rows beyond M, are zero-filled by the
-// copy itself (src-size 0).  The tile is chosen per launch (64 or 128
-// rows; 64 columns where N = 64) to fill the SMs (132 on an H100) at
-// every M the main path launches.  The epilogue applies the folded BN,
-// the residual, the ReLU and the extents mask before one store.  No
-// atomics: the result does not change from run to run.
+// copy itself (src-size 0).  The epilogue applies the folded BN, the
+// residual (read from device memory), the ReLU and the extents mask
+// before one store.
+//
+// Schedule: persistent stream-K (Osama et al., PPoPP 2023, in its hybrid
+// of data-parallel tiles and a stream-K region).  The ring takes ~197
+// KB, so an SM holds one CTA, and a grid of tiles left SMs idle through a
+// partial last wave (72 tiles on 132 SMs, say) and refilled the ring from
+// empty for every tile.  Instead a launch starts min(#SMs, work) CTAs,
+// each walking a static, contiguous share of the launch's (tile, K-stage)
+// space; the plan (stream_k.h make_plan) is computed on the host from (M,
+// N, K, SM count) and passed by value:
+//   - of T tiles, R = T % #SMs fill a partial wave.  Where a whole wave
+//     exists, the partial wave and the last whole wave (R + #SMs tiles)
+//     are split along K evenly over all CTAs, 1-2 tiles' stages each;
+//     the other whole waves stay whole, dealt round robin.  Where none
+//     does, the R tiles are split over min(#SMs, R * KT / 4) CTAs, so no
+//     CTA takes fewer than 4 stages, where that is more CTAs than tiles.
+//   - A split is taken only where its busiest CTA, charged 4 stages for
+//     the fixup, still finishes before the whole tiles' last wave would:
+//     so tiles of fewer than 8 stages (K < 256), waves all but full, and
+//     whole waves (the kernel is then a plain persistent GEMM) stay whole.
+//   - Why the last whole wave joins the split: a fixup reads its shares
+//     one after another (each about a stage-time), and the partial
+//     wave alone, spread over all SMs, gave a tile up to 11 holders (12
+//     tiles of 72 stages on 132 CTAs); with one whole wave more a tile
+//     has 2-3.
+//   - A CTA does its split share first, then its whole tiles.  The
+//     producer goes straight on to the next unit's stages, so the ring
+//     runs across tile boundaries: the next tile's loads, and the split
+//     of its first A fragments, overlap this tile's epilogue, and only a
+//     CTA's first tile starts from an empty ring (full / empty phases
+//     count on across units).
+// Fixup of a split tile, deterministic and without atomics in any sum:
+// a CTA holding a later share writes its fp32 acc (the sum of its
+// promoted stage partials) to its workspace slot and sets its flag
+// (release); the CTA holding the tile's first stage waits for each later
+// CTA's flag (acquire), resets it, and adds the shares in ascending K
+// order before the epilogue.  A CTA holds a later share of at most one
+// tile (the first in its range), so one slot and one flag per CTA do.
+// The first share of a tile is the last unit of its CTA's split range
+// and the later shares come first in theirs, so waits are short.  A CTA
+// waits only on CTAs with a higher blockIdx, which hold no wait before
+// they publish.  This assumes every CTA of the grid becomes resident:
+// the grid never exceeds the SM count and an SM holds one CTA; a kernel
+// of another stream (NCCL in rank-sharded extraction) can hold an SM for
+// a while, which only delays a wait, because no CTA waits on a lower one.
+// Where the tiles are balanced, what bounds the kernel is the per-stage
+// work of the 3xTF32 form itself: 12 wgmmas on 32 K, the A split on the
+// CUDA cores and the fp32 promotion of every stage (on an H100 a full
+// wave runs at ~56% of the 3xTF32 peak; the index benchmark's blocks
+// read ~48% of their roofline, ~42% before this schedule, when ~18% of
+// the SM-time went to partial waves), and for the widest 1x1s the feed
+// from L2.  BM stays 128: a 64-row CTA has one consumer warpgroup and ran
+// at ~0.6x the rate; the schedule balances the SMs instead of smaller
+// tiles.  Splitting K adds one fp32 addition per share: the same
+// products at the same precision, and a given (M, N, K, SM count)
+// always sums in the same order, so results repeat bit for bit.
 //
 // bf16 form (rir_fused_bottleneck_bf16): what the TPU kernel computes at
 // dt = bf16 (resblock_pallas.py:84-100, 112-153): products of bf16 values
@@ -81,11 +135,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
+
+#include "stream_k.h"
 
 namespace {
 
-constexpr int kBK = 32;       // K depth of one stage: 128 bytes of fp32
+using stream_k::kBK;          // K depth of one fp32 stage: 128 bytes
 constexpr int kStages = 4;    // shared-memory ring
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -225,23 +282,52 @@ __device__ __forceinline__ void wgmma_tile(float* d, const uint32_t* a, uint64_t
   }
 }
 
-template <int NWG, int BN>
+using stream_k::kBM;
+using stream_k::Plan;
+
+template <int BN>
 constexpr int smem_bytes() {
-  return kStages * (64 * NWG * 128 + 2 * BN * 128) + 2 * kStages * 8 + 1024;
+  return kStages * (kBM * 128 + 2 * BN * 128) + 2 * kStages * 8 + 1024;
+}
+
+// The 256 consumer threads' own barrier (the producer never joins it).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;" ::: "memory");
+}
+
+// Every thread polls `f` until it is set; the warp leaves the loop
+// together, so the consumers' code stays convergent (a divergent wait
+// cost the main loop its uniform registers: each wgmma descriptor then
+// went through R2UR).
+__device__ __forceinline__ void flag_wait(const int* f) {
+  int v;
+  do {
+    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(f) : "memory");
+  } while (!__all_sync(0xffffffffu, v != 0));
+}
+
+// *f = v, release, by the threads where `first` holds (a predicated
+// store, no branch).
+__device__ __forceinline__ void flag_release(int* f, int v, bool first) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n@p st.release.gpu.global.b32 [%0], %1;\n}" ::"l"(f),
+      "r"(v), "r"(static_cast<int>(first))
+      : "memory");
 }
 
 // out[m, n] = epilogue(sum_k A[m, k] * Wt[n, k]).  TAP3: A is the 3x3
 // SAME im2col of an [M, Cin] NHWC map (K = 9 * Cin); else A is [M, K].
 // Wt: [2, N, K] (tf32 big, tf32 small).  resid [M, N] or null; extents
-// [B, 2] or null.  Block: NWG consumer warpgroups + 1 producer warpgroup.
-template <int NWG, int BN, bool TAP3>
-__global__ void __launch_bounds__(128 * (NWG + 1), 1)
+// [B, 2] or null.  CTA: 2 consumer warpgroups + 1 producer warpgroup,
+// walking the units `p` gives it.  ws: one 128 x BN fp32 slot per CTA;
+// flags: one int per CTA, 0 between launches.
+template <int BN, bool TAP3>
+__global__ void __launch_bounds__(384, 1)
 conv_gemm_tf32x3(const float* __restrict__ A, const float* __restrict__ Wt,
                  const float* __restrict__ sb, const float* __restrict__ resid,
                  const int* __restrict__ extents, float* __restrict__ out, int M, int K,
-                 int N, int H, int W, int Cin) {
-  constexpr int BM = 64 * NWG;
-  constexpr int A_BYTES = BM * 128;
+                 int N, int H, int W, int Cin, const Plan p, float* ws, int* flags) {
+  constexpr int A_BYTES = kBM * 128;
   constexpr int B_BYTES = BN * 128;  // one half (big or small)
   constexpr int STAGE_BYTES = A_BYTES + 2 * B_BYTES;
   extern __shared__ uint8_t smem_raw[];
@@ -257,75 +343,91 @@ conv_gemm_tf32x3(const float* __restrict__ A, const float* __restrict__ Wt,
 #pragma unroll
     for (int s = 0; s < kStages; ++s) {
       mbar_init(full0 + 8 * s, 128);
-      mbar_init(empty0 + 8 * s, 128 * NWG);
+      mbar_init(empty0 + 8 * s, 256);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int KT = K / kBK;
   const int HW = H * W;
 
-  if (wg == NWG) {
+  if (wg == 2) {
     // ---- producer warpgroup: 16-byte chunk `chunk` of rows row0 + 16 i ----
-    if constexpr (NWG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
-    const int pt = tid - 128 * NWG;
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    // each role walks the units itself, after setmaxnreg, in its own registers
+    stream_k::Units units(p, blockIdx.x);
+    int tile, k0, k1;
+    unsigned pos = 0;  // ring position: the stages this CTA has passed through the ring
+    const int pt = tid - 256;
     const int chunk = pt & 7;
     const int row0 = pt >> 3;
-    constexpr int AR = BM / 16;
+    constexpr int AR = kBM / 16;
     constexpr int BR = BN / 16;
-    // 32-bit offsets from one row pointer per operand keep the producer
-    // within the registers it gives up to the consumers
-    const float* a_row = A + static_cast<long long>(m0 + row0) * Cin + chunk * 4;
-    const float* w_row = Wt + static_cast<long long>(n0 + row0) * K + chunk * 4;
     const int half = N * K;
-    int ahw[AR];  // (h << 16) | w of each row, for the 3x3 taps
+    while (units.next(p, tile, k0, k1)) {
+      const int tm = tile / p.tiles_n;
+      const int m0 = tm * kBM;
+      const int n0 = (tile - tm * p.tiles_n) * BN;
+      // 32-bit offsets from one row pointer per operand keep the producer
+      // within the registers it gives up to the consumers
+      const float* a_row = A + static_cast<long long>(m0 + row0) * Cin + chunk * 4;
+      const float* w_row = Wt + static_cast<long long>(n0 + row0) * K + chunk * 4;
+      int ahw[AR];  // (h << 16) | w of each row, for the 3x3 taps
+      if constexpr (TAP3) {
 #pragma unroll
-    for (int i = 0; i < AR; ++i) {
-      const int rem = (m0 + row0 + 16 * i) % HW;
-      ahw[i] = ((rem / W) << 16) | (rem % W);
-    }
-    for (int kt = 0; kt < KT; ++kt) {
-      const int s = kt % kStages;
-      mbar_wait(empty0 + 8 * s, ((kt / kStages) & 1) ^ 1);
-      const int k0 = kt * kBK;
-      const uint32_t sa = sbase + s * STAGE_BYTES;
-      int dy = 1, dx = 1, ci = k0;
-      if (TAP3) {
-        const int tap = k0 / Cin;
-        ci = k0 - tap * Cin;
-        dy = tap / 3;
-        dx = tap - 3 * dy;
-      }
-      const int tap_off = ((dy - 1) * W + (dx - 1)) * Cin + ci;
-#pragma unroll
-      for (int i = 0; i < AR; ++i) {
-        const int r = row0 + 16 * i;
-        bool ok = m0 + r < M;
-        if (TAP3) {
-          const int hh = (ahw[i] >> 16) + dy - 1;
-          const int ww = (ahw[i] & 0xffff) + dx - 1;
-          ok = ok && hh >= 0 && hh < H && ww >= 0 && ww < W;
+        for (int i = 0; i < AR; ++i) {
+          const int rem = (m0 + row0 + 16 * i) % HW;
+          ahw[i] = ((rem / W) << 16) | (rem % W);
         }
-        const float* src = ok ? a_row + (16 * i * Cin + tap_off) : A;
-        cp_async16(sa + r * 128 + ((chunk ^ (r & 7)) << 4), src, ok);
       }
-      const uint32_t sb_big = sa + A_BYTES;
+      for (int kt = k0; kt < k1; ++kt, ++pos) {
+        if constexpr (TAP3) {
+          // keep (h, w) packed: unpacked ahead of the loop they take 8
+          // more of the producer's 40 registers and spill
 #pragma unroll
-      for (int i = 0; i < BR; ++i) {
-        const int r = row0 + 16 * i;
-        const uint32_t off = r * 128 + ((chunk ^ (r & 7)) << 4);
-        const float* src = w_row + (16 * i * K + k0);
-        cp_async16(sb_big + off, src, true);
-        cp_async16(sb_big + B_BYTES + off, src + half, true);
+          for (int i = 0; i < AR; ++i) asm volatile("" : "+r"(ahw[i]));
+        }
+        const int s = pos % kStages;
+        mbar_wait(empty0 + 8 * s, ((pos / kStages) & 1) ^ 1);
+        const int kk0 = kt * kBK;
+        const uint32_t sa = sbase + s * STAGE_BYTES;
+        int dy = 1, dx = 1, ci = kk0;
+        if (TAP3) {
+          const int tap = kk0 / Cin;
+          ci = kk0 - tap * Cin;
+          dy = tap / 3;
+          dx = tap - 3 * dy;
+        }
+        const int tap_off = ((dy - 1) * W + (dx - 1)) * Cin + ci;
+#pragma unroll
+        for (int i = 0; i < AR; ++i) {
+          const int r = row0 + 16 * i;
+          bool ok = m0 + r < M;
+          if constexpr (TAP3) {
+            const int hh = (ahw[i] >> 16) + dy - 1;
+            const int ww = (ahw[i] & 0xffff) + dx - 1;
+            ok = ok && hh >= 0 && hh < H && ww >= 0 && ww < W;
+          }
+          const float* src = ok ? a_row + (16 * i * Cin + tap_off) : A;
+          cp_async16(sa + r * 128 + ((chunk ^ (r & 7)) << 4), src, ok);
+        }
+        const uint32_t sb_big = sa + A_BYTES;
+#pragma unroll
+        for (int i = 0; i < BR; ++i) {
+          const int r = row0 + 16 * i;
+          const uint32_t off = r * 128 + ((chunk ^ (r & 7)) << 4);
+          const float* src = w_row + (16 * i * K + kk0);
+          cp_async16(sb_big + off, src, true);
+          cp_async16(sb_big + B_BYTES + off, src + half, true);
+        }
+        cp_async_mbar_arrive(full0 + 8 * s);
       }
-      cp_async_mbar_arrive(full0 + 8 * s);
     }
   } else {
-    // ---- consumer warpgroup wg: output rows wg * 64 .. + 63 of the tile ----
-    if constexpr (NWG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    // ---- consumer warpgroup wg: output rows wg * 64 .. + 63 of each tile ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    stream_k::Units units(p, blockIdx.x);
+    int tile, k0, k1;
     const int lane = tid & 31;
     const int warp = (tid >> 5) & 3;
     const int g = lane >> 2;
@@ -335,14 +437,14 @@ conv_gemm_tf32x3(const float* __restrict__ A, const float* __restrict__ Wt,
     // (the tensor cores truncate; see the note at the top)
     float acc[BN / 2], part[BN / 2];
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[i] = part[i] = 0.f;
+    for (int i = 0; i < BN / 2; ++i) part[i] = 0.f;
     fence_regs(part);
 
-    // Wait for stage kt and split its A fragments: (row, k) = (g, t),
-    // (g + 8, t), (g, t + 4), (g + 8, t + 4) of each 8-deep step kk.
-    auto load = [&](int kt, uint32_t (&big)[4][4], uint32_t (&small)[4][4]) {
-      const int s = kt % kStages;
-      mbar_wait(full0 + 8 * s, (kt / kStages) & 1);
+    // Wait for ring position q and split its A fragments: (row, k) = (g,
+    // t), (g + 8, t), (g, t + 4), (g + 8, t + 4) of each 8-deep step kk.
+    auto load = [&](unsigned q, uint32_t (&big)[4][4], uint32_t (&small)[4][4]) {
+      const int s = q % kStages;
+      mbar_wait(full0 + 8 * s, (q / kStages) & 1);
       const float* a0 = reinterpret_cast<const float*>(smem + s * STAGE_BYTES + ra * 128);
       const float* a1 = a0 + 8 * 32;  // row ra + 8 (same swizzle phase: (ra + 8) & 7 == g)
 #pragma unroll
@@ -357,10 +459,9 @@ conv_gemm_tf32x3(const float* __restrict__ A, const float* __restrict__ Wt,
         }
       }
     };
-    // Issue stage kt's 12 products into `part`, wait for them, release
-    // the stage and add `part` into `acc`.
-    auto mma = [&](int kt, const uint32_t (&big)[4][4], const uint32_t (&small)[4][4]) {
-      const int s = kt % kStages;
+    // Issue position q's 12 products into `part`.
+    auto mma = [&](unsigned q, const uint32_t (&big)[4][4], const uint32_t (&small)[4][4]) {
+      const int s = q % kStages;
       // the stage was written by cp.async (generic proxy); wgmma reads B
       // through the async proxy
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
@@ -376,58 +477,126 @@ conv_gemm_tf32x3(const float* __restrict__ A, const float* __restrict__ Wt,
       }
       wgmma_commit();
     };
-    auto retire = [&](int kt) {
+    // Wait for them, release the stage and add `part` into `acc`.
+    auto retire = [&](unsigned q) {
       wgmma_wait<0>();
       fence_regs(part);
-      mbar_arrive(empty0 + 8 * (kt % kStages));
+      mbar_arrive(empty0 + 8 * (q % kStages));
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
     };
-    // Two register sets of fragments: the next stage's are split while
-    // the current stage's products run.
-    uint32_t big0[4][4], small0[4][4], big1[4][4], small1[4][4];
-    load(0, big0, small0);
-    for (int kt = 0; kt < KT; kt += 2) {
-      mma(kt, big0, small0);
-      if (kt + 1 < KT) load(kt + 1, big1, small1);
-      retire(kt);
-      if (kt + 1 >= KT) break;
-      mma(kt + 1, big1, small1);
-      if (kt + 2 < KT) load(kt + 2, big0, small0);
-      retire(kt + 1);
-    }
-
-    // ---- epilogue: folded BN, residual, ReLU, extents mask; float2 stores ----
+    // A share of a split tile in the workspace: float4 j of consumer
+    // thread tid at (j * 256 + tid), so a warp's accesses are contiguous.
+    auto slot = [&](int cta) {
+      return reinterpret_cast<float4*>(ws) + static_cast<long long>(cta) * (kBM * BN / 4) + tid;
+    };
+    // End of the unit (tile, k0, k1): hand a later share to the tile's first
+    // CTA, or add the later shares to a first one, then the epilogue.
+    auto finish = [&]() {
+      if (k0 > 0) {
+        // a later share of a split tile: hand its sum to the tile's first CTA
+        float4* mine = slot(blockIdx.x);
 #pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int m = m0 + ra + 8 * hr;
-      if (m >= M) continue;
-      bool zero = false;
-      if (extents != nullptr) {
-        const int b = m / HW;
-        const int rem = m - b * HW;
-        const int h = rem / W;
-        zero = h >= extents[2 * b] || rem - h * W >= extents[2 * b + 1];
+        for (int j = 0; j < BN / 8; ++j)
+          __stcg(mine + j * 256, make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2],
+                                             acc[4 * j + 3]));
+        consumers_sync();  // then thread 0's release covers every thread's stores
+        flag_release(flags + blockIdx.x, 1, tid == 0);
+        return;
       }
-      float* orow = out + static_cast<long long>(m) * N;
-      const float* rrow = resid != nullptr ? resid + static_cast<long long>(m) * N : nullptr;
+      if (k1 < p.kt) {
+        // the first share of a split tile: add the later ones in K order
+        const int tile_end = (tile - p.whole + 1) * p.kt;
+        for (int c = blockIdx.x + 1; c < p.sk_ctas && stream_k::share_start(p, c) < tile_end;
+             ++c) {
+          flag_wait(flags + c);
+          consumers_sync();  // every thread has seen the flag: reset it for the next launch
+          flag_release(flags + c, 0, tid == 0);
+          const float4* theirs = slot(c);
 #pragma unroll
-      for (int i = 0; i < BN / 8; ++i) {
-        const int n = n0 + 8 * i + 2 * t;
-        const float2 sc = *reinterpret_cast<const float2*>(sb + n);
-        const float2 bi = *reinterpret_cast<const float2*>(sb + N + n);
-        float2 v;
-        v.x = acc[4 * i + 2 * hr] * sc.x + bi.x;
-        v.y = acc[4 * i + 2 * hr + 1] * sc.y + bi.y;
-        if (rrow != nullptr) {
-          const float2 rv = *reinterpret_cast<const float2*>(rrow + n);
-          v.x += rv.x;
-          v.y += rv.y;
+          for (int j = 0; j < BN / 8; ++j) {
+            const float4 v = __ldcg(theirs + j * 256);
+            acc[4 * j] += v.x;
+            acc[4 * j + 1] += v.y;
+            acc[4 * j + 2] += v.z;
+            acc[4 * j + 3] += v.w;
+          }
         }
-        v.x = zero ? 0.f : fmaxf(v.x, 0.f);
-        v.y = zero ? 0.f : fmaxf(v.y, 0.f);
-        *reinterpret_cast<float2*>(orow + n) = v;
       }
+
+      // ---- epilogue: folded BN, residual, ReLU, extents mask; float2 stores ----
+      const int tm = tile / p.tiles_n;
+      const int m0 = tm * kBM;
+      const int n0 = (tile - tm * p.tiles_n) * BN;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int m = m0 + ra + 8 * hr;
+        if (m >= M) continue;
+        bool zero = false;
+        if (extents != nullptr) {
+          const int b = m / HW;
+          const int rem = m - b * HW;
+          const int h = rem / W;
+          zero = h >= extents[2 * b] || rem - h * W >= extents[2 * b + 1];
+        }
+        float* orow = out + static_cast<long long>(m) * N;
+        const float* rrow = resid != nullptr ? resid + static_cast<long long>(m) * N : nullptr;
+#pragma unroll
+        for (int i = 0; i < BN / 8; ++i) {
+          const int n = n0 + 8 * i + 2 * t;
+          const float2 sc = *reinterpret_cast<const float2*>(sb + n);
+          const float2 bi = *reinterpret_cast<const float2*>(sb + N + n);
+          float2 v;
+          v.x = acc[4 * i + 2 * hr] * sc.x + bi.x;
+          v.y = acc[4 * i + 2 * hr + 1] * sc.y + bi.y;
+          if (rrow != nullptr) {
+            const float2 rv = *reinterpret_cast<const float2*>(rrow + n);
+            v.x += rv.x;
+            v.y += rv.y;
+          }
+          v.x = zero ? 0.f : fmaxf(v.x, 0.f);
+          v.y = zero ? 0.f : fmaxf(v.y, 0.f);
+          *reinterpret_cast<float2*>(orow + n) = v;
+        }
+      }
+    };
+    // Two register sets of fragments: the next stage's are split while
+    // the current stage's products run, across unit boundaries too.  The
+    // ring position q counts the CTA's stages from 0 in one flat loop, so
+    // the descriptors and barriers it addresses stay on the uniform
+    // datapath (carried through a loop over units, ptxas kept q in
+    // vector registers and moved every wgmma descriptor with R2UR).
+    uint32_t big0[4][4], small0[4][4], big1[4][4], small1[4][4];
+    units.next(p, tile, k0, k1);  // every CTA of the plan has a unit
+    unsigned end = k1 - k0;       // ring position after the unit's last stage
+    bool more = false;            // a unit follows the current one
+    int tile2 = 0, k02 = 0, k12 = 0;
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    // Stage q from `cur`; split stage q + 1 into `nxt` where the CTA has
+    // one; at a unit's end finish it and take the next.  False when done.
+    auto step = [&](unsigned q, const uint32_t (&cur_b)[4][4], const uint32_t (&cur_s)[4][4],
+                    uint32_t (&nxt_b)[4][4], uint32_t (&nxt_s)[4][4]) {
+      mma(q, cur_b, cur_s);
+      const bool last = q + 1 == end;
+      if (last) more = units.next(p, tile2, k02, k12);
+      if (!last || more) load(q + 1, nxt_b, nxt_s);
+      retire(q);
+      if (!last) return true;
+      finish();
+      if (!more) return false;
+      tile = tile2;
+      k0 = k02;
+      k1 = k12;
+      end += k1 - k0;
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      return true;
+    };
+    load(0, big0, small0);
+    for (unsigned q = 0;; q += 2) {
+      if (!step(q, big0, small0, big1, small1)) break;
+      if (!step(q + 1, big1, small1, big0, small0)) break;
     }
   }
 }
@@ -649,46 +818,76 @@ conv_gemm_bf16(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restr
   }
 }
 
-template <typename T, int NWG, int BN, bool TAP3>
-void launch_tile(const T* A, const T* Wt, const float* sb, const T* resid,
-                 const int* extents, T* out, int M, int K, int N, int H, int W, int Cin,
-                 cudaStream_t s) {
-  constexpr int BM = 64 * NWG;
-  constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
-  // bf16 stages hold one weight copy; fp32 stages its (big, small) pair
-  constexpr int SMEM = kBf16 ? kStages * (BM * 128 + BN * 128) + 2 * kStages * 8 + 1024
-                             : smem_bytes<NWG, BN>();
-  auto run = [&](auto kern) {
-    static const cudaError_t attr =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    (void)attr;  // a refusal shows as the launch's error
-    const dim3 grid((M + BM - 1) / BM, N / BN);
-    kern<<<grid, 128 * (NWG + 1), SMEM, s>>>(A, Wt, sb, resid, extents, out, M, K, N, H, W,
-                                             Cin);
-  };
-  if constexpr (kBf16) {
-    run(conv_gemm_bf16<NWG, BN, TAP3>);
-  } else {
-    run(conv_gemm_tf32x3<NWG, BN, TAP3>);
-  }
-}
-
-// Waves of `tiles` blocks on the card (one block per SM: the ring takes
-// most of the SM's shared memory).
-int waves(long long tiles) {
+// SMs on the card, read once.
+int sm_count() {
   static const int sms = [] {
     int dev = 0, n = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
     return n > 0 ? n : 132;
   }();
+  return sms;
+}
+
+template <int BN, bool TAP3>
+void launch_tf32x3(const float* A, const float* Wt, const float* sb, const float* resid,
+                   const int* extents, float* out, int M, int K, int N, int H, int W, int Cin,
+                   float* ws, int* flags, int slots, int* report, cudaStream_t s) {
+  constexpr int SMEM = smem_bytes<BN>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      conv_gemm_tf32x3<BN, TAP3>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  (void)attr;  // a refusal shows as the launch's error
+  const Plan p = stream_k::make_plan(M, N, K, BN, std::max(1, std::min(sm_count(), slots)));
+  const int split = stream_k::split_tiles(p);
+  report[0] = p.grid;
+  report[1] = p.tiles - split;
+  report[2] = split;
+  if (p.grid > 0)
+    conv_gemm_tf32x3<BN, TAP3><<<p.grid, 384, SMEM, s>>>(A, Wt, sb, resid, extents, out, M, K,
+                                                          N, H, W, Cin, p, ws, flags);
+}
+
+template <bool TAP3>
+void launch_gemm_tf32x3(const float* A, const float* Wt, const float* sb, const float* resid,
+                        const int* extents, float* out, int M, int K, int N, int H, int W,
+                        int Cin, float* ws, int* flags, int slots, int* report,
+                        cudaStream_t s) {
+  if (N % 128 == 0)
+    launch_tf32x3<128, TAP3>(A, Wt, sb, resid, extents, out, M, K, N, H, W, Cin, ws, flags,
+                             slots, report, s);
+  else
+    launch_tf32x3<64, TAP3>(A, Wt, sb, resid, extents, out, M, K, N, H, W, Cin, ws, flags,
+                            slots, report, s);
+}
+
+// The bf16 form's launch: a grid of (64 * NWG) x BN tiles.
+template <typename T, int NWG, int BN, bool TAP3>
+void launch_tile(const T* A, const T* Wt, const float* sb, const T* resid,
+                 const int* extents, T* out, int M, int K, int N, int H, int W, int Cin,
+                 cudaStream_t s) {
+  static_assert(std::is_same_v<T, __nv_bfloat16>, "the fp32 form launches launch_tf32x3");
+  constexpr int BM = 64 * NWG;
+  // a bf16 stage holds one weight copy
+  constexpr int SMEM = kStages * (BM * 128 + BN * 128) + 2 * kStages * 8 + 1024;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      conv_gemm_bf16<NWG, BN, TAP3>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  (void)attr;  // a refusal shows as the launch's error
+  const dim3 grid((M + BM - 1) / BM, N / BN);
+  conv_gemm_bf16<NWG, BN, TAP3><<<grid, 128 * (NWG + 1), SMEM, s>>>(A, Wt, sb, resid, extents,
+                                                                    out, M, K, N, H, W, Cin);
+}
+
+// Waves of `tiles` blocks on the card (one block per SM: the ring takes
+// most of the SM's shared memory).
+int waves(long long tiles) {
+  const int sms = sm_count();
   return static_cast<int>((tiles + sms - 1) / sms);
 }
 
-// Tile per launch: 128 rows unless 64-row tiles finish sooner.  A 64-row
-// block has one consumer warpgroup and runs at ~0.6x the rate of a
-// 128-row block, so it wins only where 128-row tiles leave a wave
-// mostly empty (M <= ~4608 at N = 512 on the main path).
+// The bf16 form's tile per launch: 128 rows unless 64-row tiles finish
+// sooner.  A 64-row block has one consumer warpgroup and runs at ~0.6x
+// the rate of a 128-row block, so it wins only where 128-row tiles leave
+// a wave mostly empty.
 template <typename T, bool TAP3>
 void launch_gemm(const T* A, const T* Wt, const float* sb, const T* resid,
                  const int* extents, T* out, int M, int K, int N, int H, int W, int Cin,
@@ -715,17 +914,25 @@ void launch_gemm(const T* A, const T* Wt, const float* sb, const T* resid,
 // ordered (dy, dx, ci)), w3 [2, C, Cw]: each the (big, small) TF32 split
 // of the K-major weight; sb1/sb2 [2, Cw], sb3 [2, C]; extents [B, 2] int32
 // or null.  t1, t2: [B, H, W, Cw] fp32 scratch; out: [B, H, W, C].  C and
-// Cw must be multiples of 64.  Returns cudaGetLastError().
+// Cw must be multiples of 64.  ws [slots, 128 * 128] fp32 and flags
+// [slots] int32: the stream-K workspace, one slot and flag per CTA, used
+// by one stream at a time; flags are 0 before the first call and each
+// launch leaves them 0.  plan: 9 host ints, filled with each launch's
+// (CTAs, whole tiles, split tiles).  Returns cudaGetLastError().
 extern "C" int rir_fused_bottleneck(const float* x, const float* w1, const float* sb1,
                                     const float* w2, const float* sb2, const float* w3,
                                     const float* sb3, const int* extents, float* t1,
                                     float* t2, float* out, int B, int H, int W, int C,
-                                    int Cw, void* stream) {
+                                    int Cw, float* ws, int* flags, int slots, int* plan,
+                                    void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int M = B * H * W;
-  launch_gemm<float, false>(x, w1, sb1, nullptr, extents, t1, M, C, Cw, H, W, C, s);
-  launch_gemm<float, true>(t1, w2, sb2, nullptr, nullptr, t2, M, 9 * Cw, Cw, H, W, Cw, s);
-  launch_gemm<float, false>(t2, w3, sb3, x, nullptr, out, M, Cw, C, H, W, Cw, s);
+  launch_gemm_tf32x3<false>(x, w1, sb1, nullptr, extents, t1, M, C, Cw, H, W, C, ws, flags,
+                            slots, plan, s);
+  launch_gemm_tf32x3<true>(t1, w2, sb2, nullptr, nullptr, t2, M, 9 * Cw, Cw, H, W, Cw, ws,
+                           flags, slots, plan + 3, s);
+  launch_gemm_tf32x3<false>(t2, w3, sb3, x, nullptr, out, M, Cw, C, H, W, Cw, ws, flags,
+                            slots, plan + 6, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, loaded with ``ctypes``.  All
 sources build in parallel (one ``nvcc`` per source, started together) at
 first use, into ``build/torch_kernels/`` at the root of the checkout; a
-library's file name carries a hash of its source, so an edited source
-never loads a stale build.  Nothing here runs at import time.
+library's file name carries a hash of its source and of the headers in
+``csrc/``, so an edited source or header never loads a stale build.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ __all__ = ["BUILD_DIR", "SOURCES", "build_all", "library", "library_path"]
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = {p.stem: p for p in sorted(CSRC.glob("*.cu"))}
+HEADERS = sorted(CSRC.glob("*.h"))
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -43,7 +45,8 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes()
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in
+                                     (SOURCES[name], *HEADERS))
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

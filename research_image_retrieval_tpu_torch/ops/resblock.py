@@ -19,6 +19,24 @@ t1, t2 and the output to bf16, the rounding points of the TPU kernel at
 (``bf16_weights``).  The wrapper makes either form from the fp32 weights
 it is given and keeps it while those tensors live unchanged, so a caller
 that reuses its weights, as the model's blocks do, converts them once.
+
+The fp32 form's three launches run a persistent stream-K schedule of
+128-row tiles (``csrc/stream_k.h``, the note in ``csrc/bottleneck.cu``):
+at most one CTA per SM; the tiles of a partial last wave, with the last
+whole wave where there is one, are split along K evenly over the CTAs
+(none taking fewer than 4 stages of 32), the other whole waves stay
+whole, so no SM idles through the tail, and each CTA's ring runs on
+from one tile into the next.  The CTA holding a split
+tile's first stage waits for the later shares (CTAs of higher index
+only, all resident, as the grid never exceeds the SM count), adds them
+in K order and runs the epilogue: deterministic, no atomics, the same
+products.  BM stays 128: balancing the SMs replaces the 64-row tiles a
+partial wave once called for.  The shares pass through a workspace of
+one 128 x 128 fp32 slot and one flag per SM, kept per device and stream
+(``_workspace``).  ``fused_bottleneck.tiles`` and ``.split_tiles`` count
+the output tiles of the fp32 launches and those split along K;
+``.last_plan`` holds the last fp32 call's (CTAs, whole tiles, split
+tiles) of each of its three launches.
 """
 
 from __future__ import annotations
@@ -37,15 +55,37 @@ from research_image_retrieval_tpu_torch.utils.device import fp32_precision
 __all__ = ["bf16_weights", "fold_bn", "fused_bottleneck",
            "fused_bottleneck_reference", "split_weights"]
 
-_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+_ARGTYPES_FP32 = _ARGTYPES + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                              ctypes.c_void_p]  # ws, flags, slots, plan
+_TILE_FLOATS = 128 * 128  # one workspace slot: a 128 x 128 fp32 tile
 
 
 @functools.cache
 def _lib(symbol: str = "rir_fused_bottleneck"):
     fn = getattr(_cuda.library("bottleneck"), symbol)
-    fn.argtypes = _ARGTYPES
+    fn.argtypes = (_ARGTYPES_FP32 if symbol == "rir_fused_bottleneck"
+                   else _ARGTYPES) + [ctypes.c_void_p]  # stream
     fn.restype = ctypes.c_int
     return fn
+
+
+_WORKSPACES: dict = {}
+
+
+def _workspace(dev: torch.device, stream: int):
+    """The fp32 form's stream-K workspace on ``dev`` for ``stream``: one
+    128 x 128 fp32 slot and one int32 flag per SM.  Kept for the process,
+    one per (device, stream), since the kernel leaves its flags at 0 and
+    two streams must not share them."""
+    key = (dev.index, stream)
+    hit = _WORKSPACES.get(key)
+    if hit is None:
+        slots = torch.cuda.get_device_properties(dev).multi_processor_count
+        hit = _WORKSPACES[key] = (
+            torch.empty(slots * _TILE_FLOATS, dtype=torch.float32, device=dev),
+            torch.zeros(slots, dtype=torch.int32, device=dev))
+    return hit
 
 
 def fold_bn(scale, bias, mean, var, eps: float = 1e-5) -> torch.Tensor:
@@ -193,17 +233,31 @@ def fused_bottleneck(x: torch.Tensor, w1, sb1, w2, sb2, w3, sb3,
     t1 = torch.empty((B, H, W, Cw), dtype=dt, device=dev)
     t2 = torch.empty_like(t1)
     out = torch.empty_like(x)
-    rc = _lib("rir_fused_bottleneck" if dt == torch.float32
-              else "rir_fused_bottleneck_bf16")(
-        x.data_ptr(), k1.data_ptr(), sb1.data_ptr(), k2.data_ptr(),
-        sb2.data_ptr(), k3.data_ptr(), sb3.data_ptr(),
-        None if ext is None else ext.data_ptr(), t1.data_ptr(),
-        t2.data_ptr(), out.data_ptr(), B, H, W, C, Cw,
-        torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = [x.data_ptr(), k1.data_ptr(), sb1.data_ptr(), k2.data_ptr(),
+            sb2.data_ptr(), k3.data_ptr(), sb3.data_ptr(),
+            None if ext is None else ext.data_ptr(), t1.data_ptr(),
+            t2.data_ptr(), out.data_ptr(), B, H, W, C, Cw]
+    if dt == torch.float32:
+        ws, flags = _workspace(dev, stream)
+        plan = (ctypes.c_int * 9)()
+        rc = _lib("rir_fused_bottleneck")(
+            *args, ws.data_ptr(), flags.data_ptr(), flags.numel(),
+            ctypes.addressof(plan), stream)
+    else:
+        rc = _lib("rir_fused_bottleneck_bf16")(*args, stream)
     if rc != 0:
         raise RuntimeError(f"bottleneck kernel launch failed: cudaError {rc}")
     fused_bottleneck.launches += 1
+    if dt == torch.float32:
+        fused_bottleneck.last_plan = [tuple(plan[i:i + 3]) for i in (0, 3, 6)]
+        fused_bottleneck.tiles += plan[1] + plan[2] + plan[4] + plan[5] \
+            + plan[7] + plan[8]
+        fused_bottleneck.split_tiles += plan[2] + plan[5] + plan[8]
     return out
 
 
 fused_bottleneck.launches = 0
+fused_bottleneck.tiles = 0
+fused_bottleneck.split_tiles = 0
+fused_bottleneck.last_plan = []

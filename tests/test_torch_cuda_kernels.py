@@ -10,7 +10,7 @@ PyTorch is installed:
 Tolerances: the head is fp32 FMA on both sides, sums in another order,
 and holds to rtol 1e-5 / atol 1e-6 (bf16 weight: 5e-3, the Pallas bar);
 the bottleneck's 3xTF32 products carry fp32's accuracy and hold to atol
-1e-4 on O(1) outputs.
+1e-4 on O(1) outputs, whether or not its schedule splits a tile's K.
 """
 
 import math
@@ -133,20 +133,50 @@ def test_bottleneck_kernel(cuda, c, cw, h, w, with_extents):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
 
 
-@pytest.mark.parametrize("B,h,w,c,cw", [(2, 19, 13, 256, 64),
-                                        (2, 19, 13, 2048, 512),
-                                        (8, 16, 16, 2048, 512)])
-def test_bottleneck_kernel_tiles(cuda, B, h, w, c, cw):
-    """Shapes that stress the per-launch tiling, with extents: M = 494
-    (not a multiple of a tile) at the narrowest and the widest block, and
-    M = 2048 at C = 2048 (layer4 of the 512 px bucket, 64-row tiles)."""
+WHOLE_WAVES = object()  # (B, h) = (2, 64) with w = the SM count: 128 * SMs rows
+
+
+@pytest.mark.parametrize("B,h,w,c,cw,split", [
+    (2, 19, 13, 256, 64, None),
+    (2, 19, 13, 2048, 512, None),
+    (8, 16, 16, 2048, 512, None),
+    (8, 24, 24, 1024, 256, True),
+    (8, 24, 48, 1024, 256, True),
+    (8, 48, 32, 1024, 256, True),
+    (1, 32, 24, 2048, 512, True),
+    (2, 64, WHOLE_WAVES, 1024, 256, False)])
+def test_bottleneck_kernel_tiles(cuda, B, h, w, c, cw, split):
+    """Shapes that stress the stream-K schedule, with extents, against
+    the plain version; two calls on the same inputs equal bit for bit
+    (the split tiles' fixup adds the shares in a fixed order).  M = 494
+    (not a multiple of a tile) at the narrowest and the widest block; M =
+    2048 at C = 2048 (layer4 of the 512 px bucket); the index cell's
+    layer 3 at M = 4608, 9216 and 12288 (partial waves: tiles split along
+    K); layer 4 at B = 1, as ``cli.serve`` runs it (6 row tiles); and 128
+    rows per SM at layer 3, whole waves of tiles in all three launches
+    (nothing split)."""
+    if w is WHOLE_WAVES:
+        w = torch.cuda.get_device_properties(0).multi_processor_count
     x, ws, ext = _bottleneck_inputs(cuda, B, h, w, c, cw, True)
-    before = resblock.fused_bottleneck.launches
-    got = resblock.fused_bottleneck(x, *ws, extents=ext)
+    fb = resblock.fused_bottleneck
+    before = (fb.launches, fb.tiles, fb.split_tiles)
+    got = fb(x, *ws, extents=ext)
+    plan = fb.last_plan
+    again = fb(x, *ws, extents=ext)
     want = resblock.fused_bottleneck_reference(x, *ws, extents=ext)
     torch.cuda.synchronize()
-    assert resblock.fused_bottleneck.launches == before + 1
+    assert fb.launches == before[0] + 2
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    assert torch.equal(got, again)
+    split_tiles = fb.split_tiles - before[2]
+    assert fb.tiles - before[1] == 2 * sum(whole + sp for _, whole, sp in plan)
+    assert split_tiles == 2 * sum(sp for _, _, sp in plan)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert all(1 <= ctas <= sms for ctas, _, _ in plan)
+    if split is True:
+        assert split_tiles > 0, plan
+    elif split is False:
+        assert split_tiles == 0, plan
 
 
 def test_bottleneck_kernel_weights_changed_in_place(cuda):
