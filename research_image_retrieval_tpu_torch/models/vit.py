@@ -20,6 +20,13 @@ as the exact-shape run resizes it to its own grid.
 patch tokens))`` then L2; ArcFace with the margin in training only.
 The backbone computes in ``dtype`` (fp32 or bf16; the attention softmax
 in fp32); the GeM, the whitening and the loss stay fp32.
+
+Spans (``utils.profiling.span``, recorded while a profiler records):
+``vit.embed`` (the patch convolution, the position grids, the token
+assembly and CLIP's ``ln_pre``), ``vit.blocks`` (the blocks and
+``ln_post``, with counts ``tokens`` = B x N, ``pairs`` = B x heads x
+N^2 query-key pairs a block computes, and ``layers``; all from shapes),
+and ``vit.head`` (``ViTGlobalModel``'s GeM, whitening and L2).
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ from research_image_retrieval_tpu_torch.ops.norm import (
 )
 from research_image_retrieval_tpu_torch.ops.resize import dense_resize_weights
 from research_image_retrieval_tpu_torch.utils.device import fp32_precision
+from research_image_retrieval_tpu_torch.utils.profiling import span
 
 __all__ = ["VIT_CONFIGS", "ViTBlock", "ViTGlobalModel", "VisionTransformer",
            "per_image_grid", "resize_grid"]
@@ -135,6 +143,7 @@ class VisionTransformer(nn.Module):
                  dtype=torch.float32):
         super().__init__()
         self.dim, self.depth, self.patch = dim, depth, patch
+        self.heads = heads
         self.img_size, self.quick_gelu = img_size, quick_gelu
         self.num_prompt_tokens = num_prompt_tokens
         self.dtype = compute_dtype(dtype)
@@ -161,10 +170,9 @@ class VisionTransformer(nn.Module):
                 if p is not None:
                     p.copy_(0.02 * torch.randn(p.shape, generator=generator))
 
-    @fp32_precision()
-    def forward(self, x: torch.Tensor, valid_hw: torch.Tensor | None = None):
-        """x: [B, H, W, 3] (zero-padded bottom/right when ``valid_hw``
-        [B, 2] is given; the extents must be multiples of ``patch``)."""
+    def _embed(self, x: torch.Tensor, valid_hw: torch.Tensor | None):
+        """The tokens ``[B, 1 + gh*gw (+ prompts), dim]``, their key mask
+        (None without ``valid_hw``) and the patch grid (gh, gw)."""
         B = x.shape[0]
         y = x.to(self.dtype) if self.dtype == torch.bfloat16 else x
         y = same_conv(self.patch_embed, y)
@@ -196,9 +204,20 @@ class VisionTransformer(nn.Module):
             tmask = torch.cat(parts, dim=1)
         if self.quick_gelu:
             y = self.ln_pre(y)
-        for i in range(self.depth):
-            y = getattr(self, f"block{i}")(y, token_mask=tmask)
-        y = self.ln_post(y)
+        return y, tmask, gh, gw
+
+    @fp32_precision()
+    def forward(self, x: torch.Tensor, valid_hw: torch.Tensor | None = None):
+        """x: [B, H, W, 3] (zero-padded bottom/right when ``valid_hw``
+        [B, 2] is given; the extents must be multiples of ``patch``)."""
+        B = x.shape[0]
+        with span("vit.embed"):
+            y, tmask, gh, gw = self._embed(x, valid_hw)
+        with span("vit.blocks", tokens=B * y.shape[1],
+                  pairs=B * self.heads * y.shape[1] ** 2, layers=self.depth):
+            for i in range(self.depth):
+                y = getattr(self, f"block{i}")(y, token_mask=tmask)
+            y = self.ln_post(y)
         return y[:, 0], y[:, 1:1 + gh * gw]
 
 
@@ -225,20 +244,23 @@ class ViTGlobalModel(nn.Module):
         """The patch size: bucketed extents must be multiples of it."""
         return VIT_CONFIGS[self.variant]["patch"]
 
-    def _descriptor(self, x, valid_hw=None):
+    def _descriptor(self, x, valid_hw=None, normalize: bool = False):
         cls, patches = self.backbone(x, valid_hw=valid_hw)
-        cls = at_least_fp32(cls)
-        xp = torch.clamp(at_least_fp32(patches), min=1e-6) ** self.p
-        if valid_hw is None:
-            gem = xp.mean(dim=1) ** (1.0 / self.p)
-        else:
-            pt = self.backbone.patch
-            pm = token_mask(x.shape[1] // pt, x.shape[2] // pt,
-                            torch.div(valid_hw, pt, rounding_mode="floor"),
-                            dtype=xp.dtype)
-            cnt = torch.clamp(pm.sum(dim=1, keepdim=True), min=1.0)
-            gem = ((xp * pm[..., None]).sum(dim=1) / cnt) ** (1.0 / self.p)
-        return self.whiten(torch.cat([cls, gem], dim=-1))
+        with span("vit.head"):
+            cls = at_least_fp32(cls)
+            xp = torch.clamp(at_least_fp32(patches), min=1e-6) ** self.p
+            if valid_hw is None:
+                gem = xp.mean(dim=1) ** (1.0 / self.p)
+            else:
+                pt = self.backbone.patch
+                pm = token_mask(x.shape[1] // pt, x.shape[2] // pt,
+                                torch.div(valid_hw, pt, rounding_mode="floor"),
+                                dtype=xp.dtype)
+                cnt = torch.clamp(pm.sum(dim=1, keepdim=True), min=1.0)
+                gem = ((xp * pm[..., None]).sum(dim=1) / cnt) \
+                    ** (1.0 / self.p)
+            feat = self.whiten(torch.cat([cls, gem], dim=-1))
+            return l2_normalize(feat) if normalize else feat
 
     @fp32_precision()
     def forward(self, x: torch.Tensor, labels: torch.Tensor,
@@ -256,7 +278,7 @@ class ViTGlobalModel(nn.Module):
         """[B, H, W, 3] (+ [B, 2] extents, multiples of the patch size)
         -> [B, outputdim] L2-normalized fp32 descriptors."""
         train_mode(self, False)
-        return l2_normalize(self._descriptor(x, valid_hw))
+        return self._descriptor(x, valid_hw, normalize=True)
 
 
 register_model(

@@ -12,7 +12,9 @@ CPU, and the benchmark's readers of them:
 * a ``SearchService`` round trip records ``serve.queue_wait`` and
   ``serve.engine`` under one request id, and ``stats()`` sums both;
 * ``ImageExtractor`` records its lock wait, thumbnail and extraction;
-* the three index readers on hand-made records.
+* a ViT extraction records ``vit.embed``, ``vit.blocks`` (with its counts)
+  and ``vit.head``, as host events;
+* the four index readers on hand-made records.
 """
 
 import math
@@ -219,6 +221,37 @@ def test_extract_vectors_records_its_span_tree():
     assert [s for *_, s in got] == [1, 1, 0]
 
 
+def test_vit_records_its_spans_with_counts():
+    from research_image_retrieval_tpu_torch.models import get_model
+
+    torch.manual_seed(0)
+    model = get_model("vit_b16", variant="test", outputdim=8, num_classes=4,
+                      img_size=32).eval()
+    x = torch.randn(2, 40, 48, 3)
+    valid = torch.tensor([[40, 48], [32, 24]])
+    plain = model.extract(x, valid)
+    with _Recording() as rec:
+        traced = model.extract(x, valid)
+    torch.testing.assert_close(traced, plain, rtol=0, atol=0)
+    recs = rec.records("vit.")
+    assert [r["name"] for r in recs] == ["vit.embed", "vit.blocks",
+                                         "vit.head"]
+    assert all(r["parent"] is None and r["end_ns"] is not None
+               for r in recs)
+    n = 1 + (40 // 8) * (48 // 8)  # the CLS token and a 5 x 6 patch grid
+    assert recs[1]["counts"] == {"tokens": 2 * n, "pairs": 2 * 2 * n * n,
+                                 "layers": 2}
+    assert recs[0]["counts"] == recs[2]["counts"] == {}
+    assert recs[0]["end_ns"] <= recs[1]["start_ns"]
+    assert recs[1]["end_ns"] <= recs[2]["start_ns"]
+    events = [e for e in rec.prof.events() if e.name.startswith("vit.")]
+    assert sorted(e.name for e in events) == ["vit.blocks", "vit.embed",
+                                              "vit.head"]
+    for e in events:
+        assert e.is_user_annotation is False
+        assert e.device_type == torch.autograd.DeviceType.CPU
+
+
 # -- the train step and the server ---------------------------------------------
 
 def test_train_step_records_its_phases():
@@ -318,6 +351,11 @@ HAND_MADE = [
     # it: neither counts
     _rec(10, "extract.batch", 30, None, px_valid=5, px_fed=5),
     _rec(11, "extract.assemble", 40, 90, parent=None),
+    # the ViT's blocks inside two dispatches, and one the stretch cut off
+    _rec(13, "vit.blocks", 10, 18, parent=5, tokens=40, pairs=1000,
+         layers=2),
+    _rec(14, "vit.blocks", 24, 28, parent=9, tokens=30, pairs=600, layers=2),
+    _rec(15, "vit.blocks", 31, None, tokens=5, pairs=25, layers=2),
     _rec(12, "train.step", 0, 50),
 ]
 
@@ -326,12 +364,14 @@ HAND_MADE = [
     ("extract.valid_px_share.index", 60.0),
     ("extract.stage_ms.index", 3.5),     # (3 + 1 + 2 + 1) / 2
     ("extract.dispatch_ms.index", 8.0),  # (10 + 6) / 2
+    ("vit.pair_valid_share.index_vit", 75.0),  # 2400 / (2 * (1000 + 600))
 ])
 def test_index_readers_on_hand_made_spans(monkeypatch, metric, want):
     read = harness._reader(metric)
     assert read({}) is None  # no trace: nothing reported
     monkeypatch.setattr(profiling, "spans", lambda: list(HAND_MADE))
-    obs = {"trace": {"window_s": 1.0}}
+    # the valid pairs are the benchmark's own count of the stretch
+    obs = {"trace": {"window_s": 1.0}, "attention": {"valid_pairs": 2400}}
     assert read(obs) == pytest.approx(want)
     monkeypatch.setattr(profiling, "spans", lambda: HAND_MADE[-1:])
     assert read(obs) is None  # no batch in the stretch
